@@ -1,0 +1,16 @@
+"""artstyletransfer_tpu_torch — the PyTorch/CUDA port of ``artstyletransfer_tpu``.
+
+Improved Gatys style transfer (multi-resolution pyramid loss, structured
+style-derived noise initialization, Adam or strong-Wolfe L-BFGS) running
+on an NVIDIA H100 through PyTorch, with hand-written CUDA kernels for the
+Gram matrix, its backward and the total-variation sums (kernels/).
+
+The JAX package ``artstyletransfer_tpu`` is the reference this package is
+tested against; this package never imports it, nor JAX. Entry points
+(TransferJob, neural_style_transfer, Executor, the CLI) run on CUDA unless
+the caller passes device='cpu'.
+"""
+
+__version__ = "0.1.0"
+
+from .config import Config, simultaneous_tasks_count  # noqa: F401

@@ -1,0 +1,208 @@
+"""Configuration for the PyTorch/CUDA style-transfer engine.
+
+Same fields, defaults, presets and helpers as the JAX package's
+``artstyletransfer_tpu/config.py`` (kept as an independent copy: this
+package never imports the JAX one). Fields that only steer an XLA lowering
+(``pool_impl``, ``pipeline_streaming``, ``stop_shrink``, ``use_pallas``)
+are kept so a config round-trips between the two packages; the port reads
+what its engine implements and says so where it differs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+# Max style-transfer jobs optimizing concurrently (reference config.py:1).
+simultaneous_tasks_count = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """All engine settings. Defaults match reference config.py:5-18."""
+
+    # --- loss weights ---
+    content_weight: float = 1e3
+    style_weight: float = 4e5
+    tv_weight: float = 1e2
+
+    # --- algorithm selection ---
+    optimizer: str = "lbfgs"            # 'lbfgs' | 'adam'
+    model: str = "vgg19"                # 'vgg19'
+    init_method: str = "content+noise"  # 'random' | 'content+noise' | 'style'
+    use_relu: bool = True               # post-ReLU taps; False = pre-ReLU
+                                        # conv taps (conv4_2 is pre-ReLU
+                                        # either way)
+
+    # --- pyramid / iteration counts ---
+    levels_num: int = 2
+    iters_num: int = 500
+
+    # --- structured noise init ---
+    noise_factor: float = 0.95
+    noise_levels: Tuple[int, ...] = (9, 18, 36, -1, 0)
+    noise_levels_central_amplitude: Tuple[float, ...] = (0.30, 0.20, 0.10, 0.20, 0.20)
+    noise_levels_peripheral_amplitude: Tuple[float, ...] = (0.20, 0.30, 0.40, 0.10, 0.00)
+    noise_levels_dispersion: Tuple[float, ...] = (0.20, 0.30, 0.40, 0.60, 0.30)
+
+    # --- optimizer hyperparameters ---
+    lr_start: float = 10.0
+    lr_decay: float = 0.999
+    lr_decay_per_eval: bool = True      # decay lr on every loss evaluation
+                                        # (the reference's closure semantics)
+    lbfgs_history: int = 100            # torch's history_size default
+    lbfgs_max_ls_steps: int = 25        # strong-Wolfe budget per step; 0 =
+                                        # the reference's exact max_ls=0
+    lbfgs_direction: str = "matrix"     # 'matrix' | 'loop' two-loop form
+    lbfgs_t_init: str = "lr"            # first line-search trial: 'lr' |
+                                        # 'unit'
+    lbfgs_grams: str = "recompute"      # 'recompute' ('incremental' is not
+                                        # ported yet and raises)
+    lbfgs_state_dtype: str = "float32"  # 'float32' ('bfloat16' is not
+                                        # ported yet and raises)
+
+    # --- engine knobs ---
+    base_diameter: int = 256            # level-0 shortest side
+    compute_dtype: str = "float32"      # 'float32' | 'bfloat16' conv compute
+    conv_precision: str = "default"     # 'default' | 'high': TF32 allowed
+                                        # for cuDNN convs and matmuls;
+                                        # 'highest': full float32
+                                        # (see apply_precision)
+    stream_every: int = 10              # steps per progress yield
+    pipeline_streaming: bool = True     # JAX-only lookahead dispatch; the
+                                        # port streams sequentially, which
+                                        # yields the same values
+    seed: int = 0
+
+    # --- demonstration / ablation flags ---
+    demo_normal_noise: bool = False
+    demo_no_gaussian_mask: bool = False
+    demo_ignore_gradient_map: bool = False
+    dump_masks_dir: str = ""
+    use_pallas: bool = False            # kept for parity; on the card the
+                                        # Gram and TV always run through the
+                                        # hand-written kernels
+    pool_impl: str = "reduce_window"    # XLA pool lowering; the port has
+                                        # one max-pool (same semantics)
+    fused_style_bwd: bool = True        # closed-form style-layer backward
+    nan_checks: bool = True             # raise on a non-finite loss at
+                                        # synced chunk boundaries
+    remat_levels: bool = False          # not ported yet (raises)
+    stop_tol: float = 0.0               # convergence early-stop on the
+                                        # relative loss change per chunk
+    stop_shrink: bool = True            # batched runs only (not ported)
+
+
+NO_NOISE_CONFIG = Config(
+    noise_factor=0.0,
+    noise_levels=(),
+    noise_levels_central_amplitude=(),
+    noise_levels_peripheral_amplitude=(),
+    noise_levels_dispersion=(),
+)
+
+PIXEL_WIDE_NOISE_CONFIG = Config(
+    noise_factor=0.5,
+    noise_levels=(-1,),
+    noise_levels_central_amplitude=(1.0,),
+    noise_levels_peripheral_amplitude=(1.0,),
+    noise_levels_dispersion=(0.5,),
+)
+
+NOISE_128_CONFIG = Config(
+    noise_factor=0.7,
+    noise_levels=(128,),
+    noise_levels_central_amplitude=(1.0,),
+    noise_levels_peripheral_amplitude=(1.0,),
+    noise_levels_dispersion=(0.5,),
+)
+
+NOISE_16_CONFIG = Config(
+    noise_factor=0.7,
+    noise_levels=(16,),
+    noise_levels_central_amplitude=(1.0,),
+    noise_levels_peripheral_amplitude=(1.0,),
+    noise_levels_dispersion=(0.5,),
+)
+
+STANDARD_GAUSS_NOISE_CONFIG = Config()
+
+LIGHT_GAUSS_NOISE_CONFIG = Config(
+    content_weight=1e3,
+    style_weight=1e3,
+    tv_weight=0e0,
+    levels_num=2,
+    iters_num=1500,
+    noise_factor=0.95,
+    noise_levels=(32, 64, 128, -1, 0),
+    noise_levels_central_amplitude=(0.10, 0.15, 0.5, 0.10, 0.00),
+    noise_levels_peripheral_amplitude=(0.20, 0.30, 0.10, 0.80, 0.00),
+)
+
+STARTING_CONFIG = Config(levels_num=1, iters_num=10)
+
+PRESETS = {
+    "no_noise": NO_NOISE_CONFIG,
+    "pixel_wide": PIXEL_WIDE_NOISE_CONFIG,
+    "noise_128": NOISE_128_CONFIG,
+    "noise_16": NOISE_16_CONFIG,
+    "standard": STANDARD_GAUSS_NOISE_CONFIG,
+    "light_gauss": LIGHT_GAUSS_NOISE_CONFIG,
+    "smoke": STARTING_CONFIG,
+}
+
+
+def reference_equivalent_steps(config: Config, reference_iters: int) -> int:
+    """Map the reference's iters_num (closure evaluations) onto optimizer
+    steps: one reference-semantics L-BFGS step (max_ls=0) spends two
+    evaluations, Adam one."""
+    if config.optimizer == "lbfgs":
+        if config.lbfgs_max_ls_steps == 0:
+            return max(1, reference_iters // 2)
+        raise ValueError(
+            "the reference's closure-count iteration unit has no fixed "
+            "optimizer-step equivalence under a real line search "
+            "(1 + n_evals closure calls per step, data-dependent)")
+    return reference_iters
+
+
+def production_config(base: Config | None = None) -> Config:
+    """The deployment default on CUDA: the config unchanged.
+
+    The JAX package flips four settings on a TPU (bfloat16 compute, the
+    unit line-search opening, carried L-BFGS Grams, bfloat16 history);
+    none of them has been measured on the card, so none is applied here.
+    """
+    return base if base is not None else Config()
+
+
+_TF32 = {"default": True, "high": True, "highest": False}
+
+
+def apply_precision(cfg: Config) -> None:
+    """Set PyTorch's float32 precision switches from cfg.conv_precision.
+
+    'highest' turns TF32 off for both cuDNN convolutions and cuBLAS
+    matmuls; 'default' and 'high' allow it. These are process-wide
+    switches: jobs that share a process should share the setting.
+    """
+    if cfg.conv_precision not in _TF32:
+        raise ValueError(f"unknown conv_precision {cfg.conv_precision!r}")
+    tf32 = _TF32[cfg.conv_precision]
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names the
+    CPU. Raises when CUDA is asked for (explicitly or by default) and no
+    card is visible — the port never falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

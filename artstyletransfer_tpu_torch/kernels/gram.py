@@ -1,0 +1,151 @@
+"""Gram forward and backward: CUDA kernels (csrc/gram.cu, csrc/gram_bwd.cu)
+and their plain PyTorch versions.
+
+Both take F, the (n, c) row-major feature matrix of one NHWC tap
+(n = h*w), in float32 or bfloat16:
+
+- gram(f, scale) = scale * F^T F, (c, c) float32. Replaces the TPU kernel
+  ``_gram_kernel`` (artstyletransfer_tpu/ops/pallas_kernels.py:52). Bound:
+  the larger of F's bytes over the memory rate and n*c*(c+1) FLOPs (G is
+  symmetric: only its upper triangle is computed) over the f32 rate;
+  bytes bind at c = 64, FLOPs from c = 128 up.
+- gram_bwd(f, g) = F @ g with g (c, c) float32, in F's dtype. Replaces
+  ``_gram_bwd_kernel`` (pallas_kernels.py:107). Bound: the larger of the
+  bytes of F read and dF written and 2*n*c^2 FLOPs over the f32 rate.
+
+The forward is split over rows (see csrc/gram.cu); the wrapper picks the
+split from the card's SM count so that about four blocks per SM are in
+flight, and allocates the (splits, c, c) workspace with torch.empty.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import LAUNCHES
+from . import build
+
+_BLOCKS_PER_SM = 4
+_TILE, _STAGE = 64, 32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def gram_plain(f: torch.Tensor, scale: float) -> torch.Tensor:
+    """scale * F^T F in float32 (the kernel's plain version)."""
+    f32 = f.float()
+    return (f32.T @ f32) * scale
+
+
+def gram_bwd_plain(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """F @ g in float32, cast to F's dtype (the kernel's plain version)."""
+    return (f.float() @ g.float()).to(f.dtype)
+
+
+def _check_features(f: torch.Tensor, what: str) -> None:
+    if not f.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {f.device}")
+    if f.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: dtype {f.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if f.dim() != 2 or f.shape[0] < 1 or f.shape[1] < 1:
+        raise ValueError(f"{what}: expected a non-empty (n, c) matrix, "
+                         f"got {tuple(f.shape)}")
+    if not f.is_contiguous():
+        raise ValueError(f"{what}: F must be contiguous (row-major)")
+    if f.numel() >= 2 ** 31:
+        raise ValueError(f"{what}: {f.numel()} elements exceed the kernel's "
+                         "32-bit row index")
+
+
+def split_plan(n: int, c: int, sms: int):
+    """(splits, rows_per_split) of the forward's row split: about four
+    blocks per SM of the card, at least 256 rows and whole 32-row stages
+    per split."""
+    n_tiles = -(-c // _TILE)
+    tiles = n_tiles * (n_tiles + 1) // 2
+    splits = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), -(-n // 256)))
+    rows = -(-n // splits)
+    rows = -(-rows // _STAGE) * _STAGE
+    return -(-n // rows), rows
+
+
+def _gram_lib():
+    lib = build.load("gram")
+    fn = lib.astt_gram
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _gram_bwd_lib():
+    lib = build.load("gram_bwd")
+    fn = lib.astt_gram_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gram_cuda(f: torch.Tensor, scale: float) -> torch.Tensor:
+    """The Gram forward kernel on a CUDA tensor (no fallback)."""
+    _check_features(f, "gram")
+    n, c = f.shape
+    sms = torch.cuda.get_device_properties(f.device).multi_processor_count
+    splits, rows = split_plan(n, c, sms)
+    fn = _gram_lib()
+    with torch.cuda.device(f.device):
+        part = torch.empty((splits, c, c), dtype=torch.float32, device=f.device)
+        out = torch.empty((c, c), dtype=torch.float32, device=f.device)
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], n, c, splits, rows,
+                 float(scale), part.data_ptr(), out.data_ptr(), stream)
+    build.check(err, "gram")
+    LAUNCHES["gram"] += 1
+    return out
+
+
+def gram_bwd_cuda(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The Gram backward kernel on CUDA tensors (no fallback)."""
+    _check_features(f, "gram_bwd")
+    n, c = f.shape
+    if (not g.is_cuda or g.device != f.device or g.dtype != torch.float32
+            or tuple(g.shape) != (c, c) or not g.is_contiguous()):
+        raise ValueError(f"gram_bwd: g must be a contiguous ({c}, {c}) "
+                         f"float32 tensor on {f.device}")
+    fn = _gram_bwd_lib()
+    with torch.cuda.device(f.device):
+        out = torch.empty((n, c), dtype=f.dtype, device=f.device)
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], g.data_ptr(), n, c,
+                 out.data_ptr(), stream)
+    build.check(err, "gram_bwd")
+    LAUNCHES["gram_bwd"] += 1
+    return out
+
+
+def gram(f: torch.Tensor, scale: float) -> torch.Tensor:
+    """scale * F^T F: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    if f.is_cuda:
+        return gram_cuda(f, scale)
+    if f.device.type == "cpu":
+        return gram_plain(f, scale)
+    raise ValueError(f"gram: unsupported device {f.device}")
+
+
+def gram_bwd(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """F @ g: the kernel for CUDA tensors, the plain version on the CPU."""
+    if f.is_cuda:
+        return gram_bwd_cuda(f, g)
+    if f.device.type == "cpu":
+        return gram_bwd_plain(f, g)
+    raise ValueError(f"gram_bwd: unsupported device {f.device}")
+

@@ -1,0 +1,47 @@
+"""Gram matrix op: thin dispatch onto kernels/gram.py.
+
+gram_matrix(x) of an NHWC feature map is the (b, c, c) float32 batch of
+F^T F / (c*h*w) with F = x[i].reshape(h*w, c) (reference math_utils.py:
+26-34). Its autograd backward is the Gram-backward kernel with
+g_sym = s (G_bar + G_bar^T), as the JAX package's ``_gram_vjp_bwd``. A CUDA
+tensor runs the kernels, a CPU tensor their plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import gram as kgram
+
+
+def features(x: torch.Tensor, i: int) -> torch.Tensor:
+    """Batch element i of an NHWC map as its (h*w, c) row-major matrix (a
+    view when the map is NHWC-contiguous, as the VGG taps are)."""
+    _, h, w, c = x.shape
+    return x[i].reshape(h * w, c).contiguous()
+
+
+class GramFn(torch.autograd.Function):
+    """(b, h, w, c) -> (b, c, c) float32, s * F^T F per batch element."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: float) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.scale = scale
+        return torch.stack([kgram.gram(features(x, i), scale)
+                            for i in range(x.shape[0])])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        g_sym = ((g + g.transpose(-1, -2)) * ctx.scale).float().contiguous()
+        dx = torch.stack([kgram.gram_bwd(features(x, i), g_sym[i])
+                          for i in range(x.shape[0])])
+        return dx.reshape(x.shape), None
+
+
+def gram_matrix(x: torch.Tensor, should_normalize: bool = True) -> torch.Tensor:
+    """Batched Gram matrix of an NHWC feature map -> (b, c, c) float32."""
+    _, h, w, c = x.shape
+    scale = 1.0 / (c * h * w) if should_normalize else 1.0
+    return GramFn.apply(x, scale)

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the time of one optimization step goes in the PyTorch/CUDA port.
+
+    python3 scripts/profile_torch_step.py [--steps 10] [--size 512]
+
+Builds the port's smoke job on the card (2 pyramid levels, full-width
+VGG19 with seeded weights, seeded synthetic size x size images), runs a
+few warm-up steps of Adam and of L-BFGS, then traces `--steps` steps of
+each with torch.profiler (CUDA activity) and prints one JSON line
+per optimizer:
+
+- host wall ms per step over `--steps` untraced steps, and device-busy
+  ms per step over as many traced ones (sum of CUDA kernel time; one
+  stream, so kernels do not overlap);
+- the device's idle share in the traced window, 1 - busy / span, where
+  span runs from the first kernel's start to the last kernel's end on
+  the device's timeline (the profiler's host overhead may lengthen it);
+- device ms per step by group: cuDNN/cuBLAS convolution and matmul
+  kernels, the port's own kernels (gram, gram_bwd, tv), and the rest
+  (elementwise, reductions, copies);
+- the ten kernels with the most device time.
+
+Needs a CUDA device; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+# substrings of the port's kernel symbols (kernels/csrc/*.cu)
+OWN = {"gram_partial_kernel": "gram", "gram_reduce_kernel": "gram",
+       "gram_bwd_kernel": "gram_bwd", "tv_partial_kernel": "tv",
+       "tv_final_kernel": "tv"}
+LIBRARY = ("conv", "cudnn", "xmma", "gemm", "sm90", "sm80", "cutlass",
+           "implicit", "winograd", "fft")
+
+
+def _group(name: str) -> str:
+    for key, group in OWN.items():
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in LIBRARY):
+        return "cudnn_cublas"
+    return "other"
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile(job, steps: int, warmup: int):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    it = job.run(iters_num=warmup + 2 * steps, stream_every=1,
+                 yield_images=False)
+    for _ in range(warmup):
+        next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # wall clock without the profiler's overhead
+    for _ in range(steps):
+        next(it)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # CUDA activity only: no per-op host records to slow the host down
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            next(it)
+        torch.cuda.synchronize()
+    groups = {"cudnn_cublas": 0.0, "gram": 0.0, "gram_bwd": 0.0, "tv": 0.0,
+              "other": 0.0}
+    kernels = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        groups[_group(evt.key)] += us / 1e3
+        kernels.append((us / 1e3, evt.count, evt.key))
+    busy_ms = sum(groups.values())
+    # the traced window's span on the device's timeline, first kernel
+    # start to last kernel end: busy and span come from the same window
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    kernels.sort(reverse=True)
+    return dict(
+        wall_ms_per_step=wall_ms / steps,
+        device_busy_ms_per_step=busy_ms / steps,
+        device_span_ms_per_step=span_ms / steps,
+        device_idle_share=1.0 - busy_ms / span_ms,
+        device_ms_per_step={k: v / steps for k, v in groups.items()},
+        top_kernels=[dict(name=k[:90], ms_per_step=ms / steps,
+                          calls_per_step=n / steps)
+                     for ms, n, k in kernels[:10]])
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device visible", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--size", type=int, default=512)
+    args = ap.parse_args()
+
+    from chip_smoke import synthetic_pair
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    content, style = synthetic_pair(size=args.size)
+    params = init_vgg19_params(seed=0)
+    for optimizer in ("adam", "lbfgs"):
+        cfg = Config(levels_num=2, base_diameter=args.size // 2,
+                     optimizer=optimizer)
+        job = TransferJob(content, style, cfg, params=params, device="cuda")
+        rec = dict(script="profile_torch_step", gpu=smi, size=args.size,
+                   optimizer=optimizer, steps=args.steps,
+                   **profile(job, args.steps, args.warmup))
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
