@@ -3,8 +3,8 @@
 Same fields, defaults, presets and helpers as the JAX package's
 ``artstyletransfer_tpu/config.py`` (kept as an independent copy: this
 package never imports the JAX one). Fields that only steer an XLA lowering
-(``pool_impl``, ``pipeline_streaming``, ``stop_shrink``, ``use_pallas``)
-are kept so a config round-trips between the two packages; the port reads
+(``pool_impl``, ``pipeline_streaming``, ``use_pallas``) are kept so a
+config round-trips between the two packages; the port reads
 what its engine implements and says so where it differs.
 """
 
@@ -92,7 +92,8 @@ class Config:
     remat_levels: bool = False          # not ported yet (raises)
     stop_tol: float = 0.0               # convergence early-stop on the
                                         # relative loss change per chunk
-    stop_shrink: bool = True            # batched runs only (not ported)
+    stop_shrink: bool = True            # batched runs: converged jobs
+                                        # leave the batch
 
 
 NO_NOISE_CONFIG = Config(

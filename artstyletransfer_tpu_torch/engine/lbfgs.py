@@ -15,13 +15,24 @@ The vectors (x, g, the (m, n) history) live on the device; the line
 search's decisions run on the host on float32 scalars (numpy), one
 device->host read of (f, g.d) per evaluation. The history buffers are
 updated in place (one row per accepted step) instead of being copied.
+
+Every job runs as a lane of a (B, n) stack (``LaneLbfgsState``,
+``lane_init_state``, ``lane_lbfgs_step``), as the JAX package's vmapped
+while-loops run a batch: every round of the line search evaluates every
+lane in one batched loss/grad call, a lane whose search has finished is
+masked and keeps its state, and each lane makes its own decisions
+(``_wolfe_search``, one coroutine per lane), so lane b follows its
+single-job trajectory. The history contractions are batched matmuls, and
+the host reads (f, g.d) of all lanes at once, one read per round. The
+single-job forms (``LbfgsState``, ``init_state``, ``lbfgs_step``) are the
+B = 1 view of the lane forms.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +49,8 @@ LossGradFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 @dataclasses.dataclass
 class LbfgsState:
+    """One job's state: lane 0 of a LaneLbfgsState, with plain scalars."""
+
     s_hist: torch.Tensor  # (m, n) parameter-difference history
     y_hist: torch.Tensor  # (m, n) gradient-difference history
     rho: torch.Tensor     # (m,)   1 / (y . s)
@@ -48,25 +61,13 @@ class LbfgsState:
     n_iter: int           # completed lbfgs_step calls (torch n_iter)
 
 
-def init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,
-               track_grams: bool = False, state_dtype=None) -> LbfgsState:
-    """Initial state; performs the first loss/grad evaluation.
-
-    track_grams (carried S Yᵀ / Y Yᵀ) and a bfloat16 state_dtype are not
-    ported yet and raise NotImplementedError."""
+def _check_ported(track_grams: bool, state_dtype) -> None:
     if track_grams:
         raise NotImplementedError(
             "lbfgs_grams='incremental' is not ported yet")
     if state_dtype not in (None, torch.float32, "float32"):
         raise NotImplementedError(
             "lbfgs_state_dtype='bfloat16' is not ported yet")
-    f, g = loss_grad(x)
-    n = x.shape[0]
-    return LbfgsState(
-        s_hist=torch.zeros((history, n), dtype=x.dtype, device=x.device),
-        y_hist=torch.zeros((history, n), dtype=x.dtype, device=x.device),
-        rho=torch.zeros((history,), dtype=x.dtype, device=x.device),
-        count=0, f=_f32(f.item()), g=g, n_evals=1, n_iter=0)
 
 
 @contextlib.contextmanager
@@ -109,29 +110,18 @@ def _two_loop_direction_loop(g: torch.Tensor, state: LbfgsState) -> torch.Tensor
     return -r
 
 
-def _two_loop_direction_matrix(g: torch.Tensor, state: LbfgsState) -> torch.Tensor:
-    """d = -H_k g via the matrix form of the two-loop recursion.
-
-    The same math as the loop form, reorganized as in the JAX package
-    (compact representation, Byrd, Nocedal & Schnabel 1994): every
-    contraction against the (m, n) history is one matmul on the device
-    (S Yᵀ, Y Yᵀ, S g, Y g, then one combination), and the sequential
-    alpha/beta recursions run over m-sized float32 scalars on the host."""
-    m = state.s_hist.shape[0]
-    S, Y = state.s_hist, state.y_hist
-    cnt = state.count
+def _two_loop_coefficients(P: np.ndarray, Q: np.ndarray, u_all: np.ndarray,
+                           v_all: np.ndarray, rho_all: np.ndarray, cnt: int):
+    """The host side of the matrix form of the two-loop recursion
+    (compact representation, Byrd, Nocedal & Schnabel 1994, as in the JAX
+    package) for one history of m buffer rows:
+    from S Yᵀ (P), Y Yᵀ (Q), S g, Y g, rho and the pair count, the
+    (gamma, coef_s, coef_y) of -d = gamma g + coef_sᵀ S + coef_yᵀ Y."""
+    m = P.shape[0]
     k = min(cnt, m)
-
     ages = np.arange(m)
     ix = (cnt - 1 - ages) % m                 # age -> buffer index
     valid = (ages < k).astype(_f32)
-
-    with _full_fp32_matmul():
-        P = (S @ Y.T).cpu().numpy()           # S Yᵀ
-        Q = (Y @ Y.T).cpu().numpy()           # Y Yᵀ
-        u_all = (S @ g).cpu().numpy()
-        v_all = (Y @ g).cpu().numpy()
-    rho_all = state.rho.cpu().numpy()
     A_sy = P[ix][:, ix]
     B_yy = Q[ix][:, ix]
     u = u_all[ix] * valid
@@ -158,21 +148,7 @@ def _two_loop_direction_matrix(g: torch.Tensor, state: LbfgsState) -> torch.Tens
     coef_y = np.zeros((m,), _f32)
     coef_s[ix] = (alpha - beta) * valid
     coef_y[ix] = -gamma * alpha * valid
-    cs = torch.from_numpy(coef_s).to(g.device)
-    cy = torch.from_numpy(coef_y).to(g.device)
-    with _full_fp32_matmul():
-        r = float(gamma) * g + cs @ S + cy @ Y
-    return -r
-
-
-def _two_loop_direction(g: torch.Tensor, state: LbfgsState,
-                        impl: str = "matrix") -> torch.Tensor:
-    if impl == "loop":
-        return _two_loop_direction_loop(g, state)
-    if impl != "matrix":
-        raise ValueError(f"unknown lbfgs direction impl {impl!r}; "
-                         "expected 'matrix' or 'loop'")
-    return _two_loop_direction_matrix(g, state)
+    return gamma, coef_s, coef_y
 
 
 def _cubic_interpolate(x1, f1, g1, x2, f2, g2, bmin, bmax):
@@ -192,20 +168,12 @@ def _cubic_interpolate(x1, f1, g1, x2, f2, g2, bmin, bmax):
         return _f32(_f32(0.5) * (bmin + bmax))
 
 
-def _strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor, d: torch.Tensor,
-                  f0: np.float32, g0: torch.Tensor, t_init: np.float32,
-                  max_iter: int):
-    """Strong-Wolfe line search along d from x, following torch's
-    _strong_wolfe decision for decision (bracket, then zoom).
-
-    Returns (t, f_t, g_t, n_evals). On a failed search returns the
-    lowest-f bracket end, like torch."""
-    gtd0 = _f32(torch.dot(g0, d).item())
-    d_norm = _f32(d.abs().max().item())
-
-    def eval_at(t):
-        f, g = loss_grad(x + float(t) * d)
-        return _f32(f.item()), g, _f32(torch.dot(g, d).item())
+def _wolfe_search(f0: np.float32, g0, gtd0: np.float32, d_norm: np.float32,
+                  t_init: np.float32, max_iter: int):
+    """The decisions of one strong-Wolfe search, as a coroutine: it yields
+    each trial step t and is sent back (f, g, g.d) at x + t d; it returns
+    (t, f_t, g_t, n_evals). g is only carried, never read, so it may be a
+    row of a batched gradient."""
 
     def armijo_fail(t, f):
         return f > f0 + _f32(_C1) * t * gtd0
@@ -222,7 +190,7 @@ def _strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor, d: torch.Tensor,
     b_t, b_f, b_gtd, b_g = [None, None], [None, None], [None, None], [None, None]
 
     while True:
-        f, g, gtd = eval_at(t)
+        f, g, gtd = yield t
         n_evals += 1
         if not bracket:
             if ls_iter >= max_iter:
@@ -287,11 +255,152 @@ def _strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor, d: torch.Tensor,
         t = _f32(tz)
 
 
-def lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor, state: LbfgsState,
-               lr, max_ls_steps: int = 25, direction_impl: str = "matrix",
-               t_init: str = "lr") -> Tuple[torch.Tensor, LbfgsState]:
+# --------------------------------------------------------------------------
+# Lanes: B independent jobs in lockstep
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LaneLbfgsState:
+    """LbfgsState with a leading lane axis; the host scalars become (B,)
+    numpy arrays, and n_iter is shared (the lanes step together)."""
+
+    s_hist: torch.Tensor  # (B, m, n)
+    y_hist: torch.Tensor  # (B, m, n)
+    rho: torch.Tensor     # (B, m)
+    count: np.ndarray     # (B,) int64
+    f: np.ndarray         # (B,) float32
+    g: torch.Tensor       # (B, n)
+    n_evals: np.ndarray   # (B,) int64
+    n_iter: int
+
+    def select(self, lanes: Sequence[int]) -> None:
+        """Keep (and repeat) the given lanes, in that order, in place."""
+        idx = torch.as_tensor(np.asarray(lanes), dtype=torch.long,
+                              device=self.g.device)
+        self.s_hist = self.s_hist.index_select(0, idx)
+        self.y_hist = self.y_hist.index_select(0, idx)
+        self.rho = self.rho.index_select(0, idx)
+        self.g = self.g.index_select(0, idx)
+        self.count = self.count[lanes]
+        self.f = self.f[lanes]
+        self.n_evals = self.n_evals[lanes]
+
+
+def lane_init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,
+                    track_grams: bool = False,
+                    state_dtype=None) -> LaneLbfgsState:
+    """Initial state of the (B, n) lanes x; one batched evaluation.
+    loss_grad maps (B, n) to ((B,) losses, (B, n) gradients).
+
+    track_grams (carried S Yᵀ / Y Yᵀ) and a bfloat16 state_dtype are not
+    ported yet and raise NotImplementedError."""
+    _check_ported(track_grams, state_dtype)
+    f, g = loss_grad(x)
+    b, n = x.shape
+    return LaneLbfgsState(
+        s_hist=torch.zeros((b, history, n), dtype=x.dtype, device=x.device),
+        y_hist=torch.zeros((b, history, n), dtype=x.dtype, device=x.device),
+        rho=torch.zeros((b, history), dtype=x.dtype, device=x.device),
+        count=np.zeros((b,), np.int64), f=f.cpu().numpy().astype(_f32),
+        g=g, n_evals=np.ones((b,), np.int64), n_iter=0)
+
+
+def _lane_view(state: LaneLbfgsState, b: int) -> LbfgsState:
+    return LbfgsState(state.s_hist[b], state.y_hist[b], state.rho[b],
+                      int(state.count[b]), state.f[b], state.g[b],
+                      int(state.n_evals[b]), state.n_iter)
+
+
+def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
+                             impl: str = "matrix") -> torch.Tensor:
+    """(B, n) directions. 'matrix': the history contractions of every lane
+    as batched matmuls over the buffer rows any lane has filled, one
+    device->host read, then each lane's host recursion
+    (_two_loop_coefficients). 'loop': the textbook loop form per lane."""
+    if impl == "loop":
+        return torch.stack([_two_loop_direction_loop(g[b], _lane_view(state, b))
+                            for b in range(g.shape[0])])
+    if impl != "matrix":
+        raise ValueError(f"unknown lbfgs direction impl {impl!r}; "
+                         "expected 'matrix' or 'loop'")
+    nb, m, _ = state.s_hist.shape
+    k = int(min(state.count.max(), m))
+    if k == 0:
+        return -g
+    S, Y = state.s_hist[:, :k], state.y_hist[:, :k]
+    with _full_fp32_matmul():
+        host = torch.cat([
+            torch.bmm(S, Y.transpose(1, 2)).reshape(nb, k * k),   # S Yᵀ
+            torch.bmm(Y, Y.transpose(1, 2)).reshape(nb, k * k),   # Y Yᵀ
+            torch.bmm(S, g.unsqueeze(2)).squeeze(2),              # S g
+            torch.bmm(Y, g.unsqueeze(2)).squeeze(2),              # Y g
+        ], dim=1).cpu().numpy()
+    rho = state.rho.cpu().numpy()
+    P = np.zeros((m, m), _f32)
+    Q = np.zeros((m, m), _f32)
+    u = np.zeros((m,), _f32)
+    v = np.zeros((m,), _f32)
+    gamma = np.zeros((nb,), _f32)
+    coef_s = np.zeros((nb, k), _f32)
+    coef_y = np.zeros((nb, k), _f32)
+    for b in range(nb):
+        P[:k, :k] = host[b, :k * k].reshape(k, k)
+        Q[:k, :k] = host[b, k * k:2 * k * k].reshape(k, k)
+        u[:k] = host[b, 2 * k * k:2 * k * k + k]
+        v[:k] = host[b, 2 * k * k + k:]
+        gamma[b], cs, cy = _two_loop_coefficients(P, Q, u, v, rho[b],
+                                                  int(state.count[b]))
+        coef_s[b], coef_y[b] = cs[:k], cy[:k]  # rows >= k are never valid
+    dev = g.device
+    with _full_fp32_matmul():
+        r = (torch.from_numpy(gamma).to(dev).unsqueeze(1) * g
+             + torch.bmm(torch.from_numpy(coef_s).to(dev).unsqueeze(1),
+                         S).squeeze(1)
+             + torch.bmm(torch.from_numpy(coef_y).to(dev).unsqueeze(1),
+                         Y).squeeze(1))
+    return -r
+
+
+def _lane_strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor,
+                       d: torch.Tensor, f0: np.ndarray, g0: torch.Tensor,
+                       gtd0: np.ndarray, t_init: np.ndarray, max_iter: int,
+                       lanes: Sequence[int]) -> Dict[int, tuple]:
+    """The strong-Wolfe searches of `lanes` in lockstep: each round
+    evaluates every lane at once (lanes not searching sit at t = 0, their
+    values unread) and sends each searching lane its own (f, g, g.d).
+    Returns {lane: (t, f_t, g_t, n_evals)}."""
+    d_norm = d.abs().amax(dim=1).cpu().numpy()
+    t_now = np.zeros((x.shape[0],), _f32)
+    searches = {}
+    for b in lanes:
+        searches[b] = _wolfe_search(f0[b], g0[b], gtd0[b], d_norm[b],
+                                    t_init[b], max_iter)
+        t_now[b] = next(searches[b])
+    results = {}
+    while searches:
+        t_dev = torch.from_numpy(t_now.copy()).to(x.device).unsqueeze(1)
+        f, g = loss_grad(x + t_dev * d)
+        fg = torch.stack([f.float(), (g * d).sum(dim=1)]).cpu().numpy()
+        for b in list(searches):
+            try:
+                t_now[b] = searches[b].send((_f32(fg[0, b]), g[b],
+                                             _f32(fg[1, b])))
+            except StopIteration as done:
+                results[b] = done.value
+                del searches[b]
+                t_now[b] = 0.0
+    return results
+
+
+def lane_lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor,
+                    state: LaneLbfgsState, lr: np.ndarray,
+                    max_ls_steps: int = 25, direction_impl: str = "matrix",
+                    t_init: str = "lr") -> Tuple[torch.Tensor, LaneLbfgsState]:
     """One L-BFGS iteration (direction + strong-Wolfe search + history
-    update); updates `state` in place and returns (x_new, state).
+    update) for every lane of x (B, n) at once, lr a (B,) float32 array;
+    updates `state` in place and returns (x_new, state). Each lane makes
+    its own decisions on its own values.
 
     t_init: 'lr' — torch parity, every search opens at lr (scaled by
     min(1, 1/|g|_1) on the very first step); 'unit' — t = 1 once a
@@ -299,40 +408,115 @@ def lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor, state: LbfgsState,
     if t_init not in ("lr", "unit"):
         raise ValueError(f"unknown lbfgs t_init {t_init!r}; "
                          "expected 'lr' or 'unit'")
-    m = state.s_hist.shape[0]
+    nb, m = state.rho.shape
     g0, f0 = state.g, state.f
-    lr = _f32(lr)
+    lr = np.asarray(lr, _f32)
 
-    d = _two_loop_direction(g0, state, impl=direction_impl)
-    dphi0 = _f32(torch.dot(g0, d).item())
+    d = _lane_two_loop_direction(g0, state, impl=direction_impl)
+    dphi0, g_l1 = torch.stack([(g0 * d).sum(dim=1),
+                               g0.abs().sum(dim=1)]).cpu().numpy()
+    dphi0 = dphi0.astype(_f32)
     # torch breaks before the line search when the slope is not
-    # meaningfully negative: the whole step is a no-op
+    # meaningfully negative: that lane's step is a no-op
     skip = dphi0 > -_TOL_CHANGE
-    if skip:
-        t, f_new, g_new, ls_evals = _f32(0.0), f0, g0, 0
-    else:
+    t0 = np.empty((nb,), _f32)
+    for b in range(nb):
         if state.n_iter == 0:
-            g_l1 = _f32(g0.abs().sum().item())
-            t0 = lr * min(_f32(1.0), _f32(1.0) / max(g_l1, _f32(1e-20)))
+            t0[b] = lr[b] * min(_f32(1.0),
+                                _f32(1.0) / max(_f32(g_l1[b]), _f32(1e-20)))
         else:
-            t0 = lr
-        if t_init == "unit" and state.count > 0:
-            t0 = _f32(1.0)
-        t, f_new, g_new, ls_evals = _strong_wolfe(
-            loss_grad, x, d, f0, g0, t0, max_iter=max_ls_steps)
+            t0[b] = lr[b]
+        if t_init == "unit" and state.count[b] > 0:
+            t0[b] = _f32(1.0)
+    found = _lane_strong_wolfe(loss_grad, x, d, f0, g0, dphi0, t0,
+                               max_ls_steps, np.flatnonzero(~skip).tolist())
 
-    s = float(t) * d
+    t = np.zeros((nb,), _f32)
+    f_new = f0.copy()
+    g_rows = list(g0)
+    ls_evals = np.zeros((nb,), np.int64)
+    for b, (tb, fb, gb, nb_evals) in found.items():
+        t[b], f_new[b], g_rows[b], ls_evals[b] = tb, fb, gb, nb_evals
+    g_new = torch.stack(g_rows)
+    s = torch.from_numpy(t).to(x.device).unsqueeze(1) * d
     x_new = x + s
     y = g_new - g0
-    ys = _f32(torch.dot(y, s).item())
+    ys = (y * s).sum(dim=1).cpu().numpy()
     # torch's curvature guard for the history update
-    if ys > 1e-10 and not skip:
-        idx = state.count % m
-        state.s_hist[idx] = s
-        state.y_hist[idx] = y
-        state.rho[idx] = float(_f32(1.0) / max(ys, _f32(1e-20)))
-        state.count += 1
+    for b in np.flatnonzero((ys > 1e-10) & ~skip):
+        idx = int(state.count[b] % m)
+        state.s_hist[b, idx] = s[b]
+        state.y_hist[b, idx] = y[b]
+        state.rho[b, idx] = float(_f32(1.0) / max(_f32(ys[b]), _f32(1e-20)))
+        state.count[b] += 1
     state.f, state.g = f_new, g_new
     state.n_evals += ls_evals
     state.n_iter += 1
     return x_new, state
+
+
+# --------------------------------------------------------------------------
+# One job: the B = 1 view of the lane forms
+# --------------------------------------------------------------------------
+
+
+def _one_lane(loss_grad: LossGradFn) -> LossGradFn:
+    """Lift a single-job loss_grad ((n,) -> (0-d, (n,))) to one lane."""
+
+    def lanes(x):
+        f, g = loss_grad(x[0])
+        return f.reshape(1), g.unsqueeze(0)
+
+    return lanes
+
+
+def _as_lanes(state: LbfgsState) -> LaneLbfgsState:
+    """A one-lane state whose tensors are views of `state`'s."""
+    return LaneLbfgsState(
+        state.s_hist.unsqueeze(0), state.y_hist.unsqueeze(0),
+        state.rho.unsqueeze(0), np.array([state.count], np.int64),
+        np.array([state.f], _f32), state.g.unsqueeze(0),
+        np.array([state.n_evals], np.int64), state.n_iter)
+
+
+def init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,
+               track_grams: bool = False, state_dtype=None) -> LbfgsState:
+    """lane_init_state for one job."""
+    return _lane_view(lane_init_state(_one_lane(loss_grad), x.unsqueeze(0),
+                                      history, track_grams, state_dtype), 0)
+
+
+def _two_loop_direction(g: torch.Tensor, state: LbfgsState,
+                        impl: str = "matrix") -> torch.Tensor:
+    """d = -H_k g for one job ('matrix' or 'loop' form)."""
+    return _lane_two_loop_direction(g.unsqueeze(0), _as_lanes(state), impl)[0]
+
+
+def _strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor, d: torch.Tensor,
+                  f0: np.float32, g0: torch.Tensor, t_init: np.float32,
+                  max_iter: int):
+    """One job's strong-Wolfe search along d from x, following torch's
+    _strong_wolfe decision for decision (bracket, then zoom). Returns
+    (t, f_t, g_t, n_evals); on a failed search the lowest-f bracket end,
+    like torch."""
+    found = _lane_strong_wolfe(
+        _one_lane(loss_grad), x.unsqueeze(0), d.unsqueeze(0),
+        np.array([f0], _f32), g0.unsqueeze(0),
+        np.array([torch.dot(g0, d).item()], _f32),
+        np.array([t_init], _f32), max_iter, [0])
+    return found[0]
+
+
+def lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor, state: LbfgsState,
+               lr, max_ls_steps: int = 25, direction_impl: str = "matrix",
+               t_init: str = "lr") -> Tuple[torch.Tensor, LbfgsState]:
+    """lane_lbfgs_step for one job; updates `state` in place and returns
+    (x_new, state)."""
+    lanes = _as_lanes(state)  # the history rows are written through
+    x_new, lanes = lane_lbfgs_step(_one_lane(loss_grad), x.unsqueeze(0),
+                                   lanes, np.array([lr], _f32), max_ls_steps,
+                                   direction_impl, t_init)
+    one = _lane_view(lanes, 0)
+    state.count, state.f, state.g = one.count, one.f, one.g
+    state.n_evals, state.n_iter = one.n_evals, one.n_iter
+    return x_new[0], state

@@ -15,6 +15,12 @@ flattened NHWC top-level image, in the JAX package's order
 (``prepare_img(...).reshape(-1)``), so states and goldens compare
 directly.
 
+The loss graph, the targets and Adam take a leading lane axis as they
+are: B jobs of one shape stack their images as (B, n) and their targets
+as (B, ...), every loss is a (B,) vector, and a lane's gradient is that of
+its own loss, since VGG couples no lanes. A single job is one lane, and
+parallel/batch.py builds the batched job on the same pieces.
+
 Not ported yet (a call that needs them raises NotImplementedError):
 checkpoint/resume and ``remat_levels``. ``pipeline_streaming`` (the JAX
 package's lookahead dispatch) is host scheduling only; the port streams
@@ -56,6 +62,21 @@ def _raise_nonfinite(f: float, done: int, cfg: Config) -> None:
         f"guard analogue tripped")
 
 
+def _raise_nonfinite_batch(bad, done, real_batch, cfg: Config) -> None:
+    """One message for every batched non-finite-loss guard site."""
+    raise FloatingPointError(
+        f"non-finite loss at step {done} for batch element(s) {bad} of "
+        f"{real_batch} (optimizer={cfg.optimizer}, "
+        f"lr_start={cfg.lr_start})")
+
+
+def lbfgs_history_gb(cfg: Config, level_shapes) -> float:
+    """Device memory one job's L-BFGS s/y history buffers need, in GB
+    (float32 storage, the only one ported)."""
+    n_pixels = int(np.prod(level_shapes[0]))
+    return 2 * cfg.lbfgs_history * n_pixels * 4 / 1e9
+
+
 def _check_supported(cfg: Config) -> None:
     if cfg.model != "vgg19":
         raise ValueError(f"{cfg.model} not supported.")
@@ -80,15 +101,17 @@ def _check_supported(cfg: Config) -> None:
 
 def _make_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
                        cfg: Config):
-    """Returns loss_fn(params, targets, x_flat) -> (total, LevelLoss list).
+    """Returns loss_fn(params, targets, x) -> ((B,) totals, LevelLoss list).
 
-    targets: tuple per level of (content_tap, tuple(grams)).
-    x_flat: flattened top-level preprocessed image (NHWC order).
+    targets: tuple per level of (content_tap, tuple(grams)), each with the
+    lane axis (B, ...).
+    x: the (B, n) flattened top-level preprocessed images (NHWC order), or
+    one (n,) image (B = 1).
     """
-    top_shape = tuple(level_shapes[0])
+    lane_shape = tuple(level_shapes[0][1:])
 
-    def loss_fn(params, targets, x_flat):
-        cur = x_flat.reshape(top_shape)
+    def loss_fn(params, targets, x):
+        cur = x.reshape((-1,) + lane_shape)
         total = 0.0
         metrics = []
         for lvl in range(len(level_shapes)):
@@ -115,7 +138,9 @@ def _make_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
 def _compute_targets(params, content_levels_pre: List[torch.Tensor],
                      style_levels_pre: List[torch.Tensor], cfg: Config):
     """Per-level target content tap + style Grams, float32 (reference
-    neural_style_transfer.py:78-82)."""
+    neural_style_transfer.py:78-82). Each level's content and style images
+    are (B, h, w, 3) stacks, one job per lane; the targets keep that lane
+    axis."""
     targets = []
     for c_img, s_img in zip(content_levels_pre, style_levels_pre):
         c_feats = extract_features(params, c_img, cfg.compute_dtype,
@@ -135,9 +160,22 @@ def _lr_at(cfg: Config, step: int) -> np.float32:
                                               np.float32(step + 1.0)))
 
 
+def _lr_per_eval(cfg: Config, n_evals: int, step: int) -> np.float32:
+    """lr of a step under the reference's per-evaluation decay: the
+    reference's closure decays lr on EVERY invocation and torch's
+    strong-Wolfe calls it (1 top call + ls evals) times per step;
+    init_state's eval stands in for step 1's top call, so the exponent is
+    step + (n_evals - 1)."""
+    expo = np.float32(n_evals) + np.float32(step) - np.float32(1.0)
+    return np.float32(cfg.lr_start * np.power(np.float32(cfg.lr_decay), expo))
+
+
 class _Adam:
     """optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) then x -= lr * update
-    (torch Adam's defaults, reference neural_style_transfer.py:134)."""
+    (torch Adam's defaults, reference neural_style_transfer.py:134).
+    Elementwise, so it serves a (B, n) stack of lanes as it is: per-lane
+    moments, one shared step counter (the JAX package's vmapped
+    ``batched_chunk``)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -159,14 +197,24 @@ class _Adam:
         update = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + self.eps)
         return x - float(_lr_at(self.cfg, step)) * update, f
 
+    def select(self, lanes) -> None:
+        """Keep (and repeat) the given lanes of the moments, in place."""
+        idx = torch.as_tensor(np.asarray(lanes), dtype=torch.long,
+                              device=self.mu.device)
+        self.mu = self.mu.index_select(0, idx)
+        self.nu = self.nu.index_select(0, idx)
+
 
 class _Lbfgs:
-    """engine/lbfgs.py with the reference's per-evaluation lr decay."""
+    """engine/lbfgs.py over a (B, n) stack of lanes, with the reference's
+    per-evaluation lr decay: each lane keeps its own history, evaluation
+    count and lr schedule (a single job is one lane). step returns the
+    (B,) losses as a float32 tensor on x's device."""
 
     def __init__(self, loss_grad, x: torch.Tensor, cfg: Config):
         self.loss_grad = loss_grad
         self.cfg = cfg
-        self.state = lbfgs_mod.init_state(
+        self.state = lbfgs_mod.lane_init_state(
             loss_grad, x, cfg.lbfgs_history,
             track_grams=(cfg.lbfgs_grams == "incremental"
                          and cfg.lbfgs_direction == "matrix"),
@@ -175,19 +223,18 @@ class _Lbfgs:
     def step(self, x: torch.Tensor, step: int):
         cfg = self.cfg
         if cfg.lr_decay_per_eval:
-            # the reference's closure decays lr on EVERY invocation and
-            # torch's strong-Wolfe calls it (1 top call + ls evals) times
-            # per step; init_state's eval stands in for step 1's top call,
-            # so the exponent is step + (n_evals - 1)
-            expo = np.float32(self.state.n_evals) + np.float32(step) - np.float32(1.0)
-            lr = np.float32(cfg.lr_start * np.power(np.float32(cfg.lr_decay), expo))
+            lr = np.array([_lr_per_eval(cfg, n, step)
+                           for n in self.state.n_evals], np.float32)
         else:
-            lr = _lr_at(cfg, step)
-        x, self.state = lbfgs_mod.lbfgs_step(
+            lr = np.full((x.shape[0],), _lr_at(cfg, step), np.float32)
+        x, self.state = lbfgs_mod.lane_lbfgs_step(
             self.loss_grad, x, self.state, lr,
             max_ls_steps=cfg.lbfgs_max_ls_steps,
             direction_impl=cfg.lbfgs_direction, t_init=cfg.lbfgs_t_init)
-        return x, self.state.f
+        return x, torch.from_numpy(self.state.f.copy()).to(x.device)
+
+    def select(self, lanes) -> None:
+        self.state.select(lanes)
 
 
 # --------------------------------------------------------------------------
@@ -237,15 +284,16 @@ class TransferJob:
                 cfg.init_method, content, style, cfg,
                 rng=np.random.default_rng(cfg.seed))
         self._x0 = torch.from_numpy(
-            prepare_img(init_img).reshape(-1)).to(self.device)
+            prepare_img(init_img).reshape(1, -1)).to(self.device)  # one lane
 
     # ---- loss evaluation -------------------------------------------------
 
     def _loss_grad(self, x: torch.Tensor):
-        """(total loss, d total / d x) at x, both detached."""
+        """((1,) total loss, (1, n) d total / d x) at the one lane x,
+        both detached."""
         x = x.detach().requires_grad_(True)
         total, _ = self._loss_fn(self.params, self.targets, x)
-        (g,) = torch.autograd.grad(total, x)
+        (g,) = torch.autograd.grad(total.sum(), x)
         return total.detach(), g
 
     @torch.no_grad()
@@ -302,6 +350,7 @@ class TransferJob:
             k = min(chunk, iters - done)
             for i in range(k):
                 x, f = opt.step(x, done + i)
+            f = f[0]  # the one lane's loss, as a 0-d tensor
             done += k
             converged = False
             if check_stop:

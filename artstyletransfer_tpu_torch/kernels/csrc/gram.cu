@@ -1,22 +1,23 @@
 // Gram forward for Hopper (sm_90a): G = s * F^T F.
 //
 // Replaces the TPU kernel artstyletransfer_tpu/ops/pallas_kernels.py
-// `_gram_kernel` (driven by `_gram_fwd_impl`). F is the (n, c) row-major
-// feature matrix of one NHWC tap (n = h*w), float32 or bfloat16; G is
-// (c, c) float32.
+// `_gram_kernel` (driven by `_gram_fwd_impl`, which vmaps it over the
+// batch). F is a (B, n, c) row-major stack of feature matrices, one per
+// lane (an NHWC tap, n = h*w), float32 or bfloat16; G is (B, c, c)
+// float32. One launch serves every lane: the lane is blockIdx.z.
 //
 // The TPU kernel walks the rows in a sequential grid and carries the sum in
 // VMEM. Blocks here run in parallel, so the sum is split over rows
 // (split-K): the grid is (upper-triangular 64x64 output tiles) x (row
-// splits). Each block streams its row range through shared memory in
-// 32-row stages, accumulates a 64x64 tile in float32 registers (4x4 per
-// thread) and writes it, and its mirror, into its own (c, c) slice of a
-// workspace. A second kernel sums the slices in a fixed order and scales by
-// s: deterministic, no atomics. G is symmetric, so only tiles with
-// ti <= tj are computed.
+// splits) x (lanes). Each block streams its row range through shared
+// memory in 32-row stages, accumulates a 64x64 tile in float32 registers
+// (4x4 per thread) and writes it, and its mirror, into its own (c, c) slice
+// of a (B, splits, c, c) workspace. A second kernel sums each lane's slices
+// in a fixed order and scales by s: deterministic, no atomics. G is
+// symmetric, so only tiles with ti <= tj are computed.
 //
-// Bound on the H100: n*c*(c+1) FLOPs, the upper triangle only (67 TFLOP/s
-// f32), vs n*c*elem bytes (3.35 TB/s). In float32 the c = 64 shapes are
+// Bound on the H100, per lane: n*c*(c+1) FLOPs, the upper triangle only
+// (67 TFLOP/s f32), vs n*c*elem bytes (3.35 TB/s). In float32 the c = 64 shapes are
 // bytes-bound and c >= 128 FLOP-bound; wgmma on bf16/TF32 tiles is the
 // later step.
 
@@ -25,6 +26,7 @@
 
 #include <algorithm>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -58,6 +60,8 @@ gram_partial_kernel(const T* __restrict__ f, int n, int c, int n_tiles,
     const int col_b = tj * kTile;
 
     const int split = blockIdx.y;
+    const size_t lane = blockIdx.z;
+    f += lane * n * c;
     const int r_begin = split * rows_per_split;
     const int r_end = min(n, r_begin + rows_per_split);
 
@@ -99,7 +103,7 @@ gram_partial_kernel(const T* __restrict__ f, int n, int c, int n_tiles,
         __syncthreads();
     }
 
-    float* out = part + static_cast<size_t>(split) * c * c;
+    float* out = part + (lane * gridDim.y + split) * c * c;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int gi = col_a + ty + 16 * i;
@@ -114,29 +118,36 @@ gram_partial_kernel(const T* __restrict__ f, int n, int c, int n_tiles,
     }
 }
 
-// out[i] = scale * sum_k part[k][i], k in increasing order
+// out[l][i] = scale * sum_k part[l][k][i], k in increasing order
 __global__ void gram_reduce_kernel(const float* __restrict__ part, int splits,
-                                   int cc, float scale, float* __restrict__ out) {
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < cc;
-         i += gridDim.x * blockDim.x) {
+                                   int cc, int64_t total, float scale,
+                                   float* __restrict__ out) {
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+        const int64_t lane = idx / cc;
+        const int64_t i = idx % cc;
+        const float* p = part + lane * splits * cc + i;
         float s = 0.f;
-        for (int k = 0; k < splits; ++k) s += part[static_cast<size_t>(k) * cc + i];
-        out[i] = s * scale;
+        for (int k = 0; k < splits; ++k) s += p[static_cast<int64_t>(k) * cc];
+        out[idx] = s * scale;
     }
 }
 
 template <typename T>
-int launch(const void* f, int n, int c, int splits, int rows_per_split,
-           float scale, float* part, float* out, cudaStream_t stream) {
+int launch(const void* f, int batch, int n, int c, int splits,
+           int rows_per_split, float scale, float* part, float* out,
+           cudaStream_t stream) {
     const int n_tiles = (c + kTile - 1) / kTile;
-    const dim3 grid(n_tiles * (n_tiles + 1) / 2, splits);
+    const dim3 grid(n_tiles * (n_tiles + 1) / 2, splits, batch);
     gram_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(f), n, c, n_tiles, rows_per_split, part);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int cc = c * c;
-    const int blocks = std::min((cc + 255) / 256, 1024);
-    gram_reduce_kernel<<<blocks, 256, 0, stream>>>(part, splits, cc, scale, out);
+    const int64_t total = static_cast<int64_t>(batch) * cc;
+    const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 1024));
+    gram_reduce_kernel<<<blocks, 256, 0, stream>>>(part, splits, cc, total,
+                                                   scale, out);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -144,18 +155,19 @@ int launch(const void* f, int n, int c, int splits, int rows_per_split,
 
 extern "C" {
 
-// f: (n, c) row-major; dtype 0 = float32, 1 = bfloat16.
-// part: (splits, c, c) float32 workspace; out: (c, c) float32.
+// f: (batch, n, c) row-major; dtype 0 = float32, 1 = bfloat16.
+// part: (batch, splits, c, c) float32 workspace; out: (batch, c, c) float32.
 // Returns the cudaError_t of the launches (0 = success).
-int astt_gram(const void* f, int dtype, int n, int c, int splits,
+int astt_gram(const void* f, int dtype, int batch, int n, int c, int splits,
               int rows_per_split, float scale, float* part, float* out,
               void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return launch<float>(f, n, c, splits, rows_per_split, scale, part, out, s);
+        return launch<float>(f, batch, n, c, splits, rows_per_split, scale,
+                             part, out, s);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(f, n, c, splits, rows_per_split, scale,
-                                     part, out, s);
+        return launch<__nv_bfloat16>(f, batch, n, c, splits, rows_per_split,
+                                     scale, part, out, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,9 +1,12 @@
 // Gram backward for Hopper (sm_90a): dF = F @ g_sym.
 //
 // Replaces the TPU kernel artstyletransfer_tpu/ops/pallas_kernels.py
-// `_gram_bwd_kernel` (driven by `_gram_bwd_impl` / `_gram_vjp_bwd`). F is
-// the (n, c) row-major feature matrix (float32 or bfloat16), g_sym a (c, c)
-// float32 matrix, dF (n, c) in F's dtype. The one kernel serves both
+// `_gram_bwd_kernel` (driven by `_gram_bwd_impl` / `_gram_vjp_bwd`, which
+// vmap it over the batch). Per lane of a batch: F is the (n, c) row-major
+// feature matrix (float32 or bfloat16), g_sym a (c, c) float32 matrix, dF
+// (n, c) in F's dtype; the lanes are stacked as (B, n, c), (B, c, c) and
+// (B, n, c), and one launch serves them all (blockIdx.z is the lane). The
+// one kernel serves both
 // backward formulas of the port: the Gram's own VJP, g_sym = s(G_bar +
 // G_bar^T), and the fused style-layer loss, g_sym = (D + D^T) 2s/(c^3 h w).
 //
@@ -13,7 +16,7 @@
 // registers, 4x4 per thread. Rows are independent, so there is no
 // cross-block reduction.
 //
-// Bound on the H100: 2*n*c^2 FLOPs on CUDA-core FMAs (67 TFLOP/s f32) vs
+// Bound on the H100, per lane: 2*n*c^2 FLOPs on CUDA-core FMAs (67 TFLOP/s f32) vs
 // 2*n*c*elem + 4*c^2 bytes (3.35 TB/s): in float32, bytes-bound at c = 64,
 // FLOP-bound from c = 128 up.
 
@@ -46,6 +49,10 @@ gram_bwd_kernel(const T* __restrict__ f, const float* __restrict__ g, int n,
 
     const int row0 = blockIdx.x * kTile;  // x: up to 2^31-1 row tiles
     const int col0 = blockIdx.y * kTile;
+    const size_t lane = blockIdx.z;
+    f += lane * n * c;
+    g += lane * c * c;
+    df += lane * n * c;
     const int tid = threadIdx.x;
     const int tx = tid % 16;
     const int ty = tid / 16;
@@ -102,9 +109,9 @@ gram_bwd_kernel(const T* __restrict__ f, const float* __restrict__ g, int n,
 }
 
 template <typename T>
-int launch(const void* f, const float* g, int n, int c, void* df,
+int launch(const void* f, const float* g, int batch, int n, int c, void* df,
            cudaStream_t stream) {
-    const dim3 grid((n + kTile - 1) / kTile, (c + kTile - 1) / kTile);
+    const dim3 grid((n + kTile - 1) / kTile, (c + kTile - 1) / kTile, batch);
     gram_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(f), g, n, c, static_cast<T*>(df));
     return static_cast<int>(cudaGetLastError());
@@ -114,13 +121,14 @@ int launch(const void* f, const float* g, int n, int c, void* df,
 
 extern "C" {
 
-// f, df: (n, c) row-major, dtype 0 = float32, 1 = bfloat16; g: (c, c) f32.
-// Returns the cudaError_t of the launch (0 = success).
-int astt_gram_bwd(const void* f, int dtype, const float* g, int n, int c,
-                  void* df, void* stream) {
+// f, df: (batch, n, c) row-major, dtype 0 = float32, 1 = bfloat16;
+// g: (batch, c, c) float32. Returns the cudaError_t of the launch
+// (0 = success).
+int astt_gram_bwd(const void* f, int dtype, const float* g, int batch, int n,
+                  int c, void* df, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(f, g, n, c, df, s);
-    if (dtype == 1) return launch<__nv_bfloat16>(f, g, n, c, df, s);
+    if (dtype == 0) return launch<float>(f, g, batch, n, c, df, s);
+    if (dtype == 1) return launch<__nv_bfloat16>(f, g, batch, n, c, df, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,7 +2,9 @@
 and their plain PyTorch versions.
 
 Both take F, the (n, c) row-major feature matrix of one NHWC tap
-(n = h*w), in float32 or bfloat16:
+(n = h*w), in float32 or bfloat16, or a (B, n, c) stack of them, one per
+lane of a batch; a stack runs as one launch whatever B is, and the
+results carry the same leading axis:
 
 - gram(f, scale) = scale * F^T F, (c, c) float32. Replaces the TPU kernel
   ``_gram_kernel`` (artstyletransfer_tpu/ops/pallas_kernels.py:52). Bound:
@@ -14,8 +16,9 @@ Both take F, the (n, c) row-major feature matrix of one NHWC tap
   bytes of F read and dF written and 2*n*c^2 FLOPs over the f32 rate.
 
 The forward is split over rows (see csrc/gram.cu); the wrapper picks the
-split from the card's SM count so that about four blocks per SM are in
-flight, and allocates the (splits, c, c) workspace with torch.empty.
+split from the card's SM count and the number of lanes so that about four
+blocks per SM are in flight, and allocates the (B, splits, c, c)
+workspace with torch.empty.
 """
 
 from __future__ import annotations
@@ -29,13 +32,14 @@ from . import build
 
 _BLOCKS_PER_SM = 4
 _TILE, _STAGE = 64, 32
+_MAX_LANES = 65535  # gridDim.z
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def gram_plain(f: torch.Tensor, scale: float) -> torch.Tensor:
     """scale * F^T F in float32 (the kernel's plain version)."""
     f32 = f.float()
-    return (f32.T @ f32) * scale
+    return (f32.transpose(-1, -2) @ f32) * scale
 
 
 def gram_bwd_plain(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -49,22 +53,30 @@ def _check_features(f: torch.Tensor, what: str) -> None:
     if f.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: dtype {f.dtype} not supported "
                         "(float32 or bfloat16)")
-    if f.dim() != 2 or f.shape[0] < 1 or f.shape[1] < 1:
-        raise ValueError(f"{what}: expected a non-empty (n, c) matrix, "
-                         f"got {tuple(f.shape)}")
+    if f.dim() not in (2, 3) or f.numel() == 0:
+        raise ValueError(f"{what}: expected a non-empty (n, c) matrix or "
+                         f"(B, n, c) stack, got {tuple(f.shape)}")
     if not f.is_contiguous():
         raise ValueError(f"{what}: F must be contiguous (row-major)")
-    if f.numel() >= 2 ** 31:
-        raise ValueError(f"{what}: {f.numel()} elements exceed the kernel's "
-                         "32-bit row index")
+    if f.shape[-2] * f.shape[-1] >= 2 ** 31:
+        raise ValueError(f"{what}: {f.shape[-2] * f.shape[-1]} elements per "
+                         "lane exceed the kernel's 32-bit row index")
+    if f.dim() == 3 and f.shape[0] > _MAX_LANES:
+        raise ValueError(f"{what}: {f.shape[0]} lanes exceed the grid's "
+                         f"{_MAX_LANES}")
 
 
-def split_plan(n: int, c: int, sms: int):
+def _lanes(f: torch.Tensor):
+    """(B, n, c) view of a matrix or a stack of them."""
+    return f if f.dim() == 3 else f.unsqueeze(0)
+
+
+def split_plan(n: int, c: int, sms: int, batch: int = 1):
     """(splits, rows_per_split) of the forward's row split: about four
-    blocks per SM of the card, at least 256 rows and whole 32-row stages
-    per split."""
+    blocks per SM of the card over all `batch` lanes, at least 256 rows and
+    whole 32-row stages per split."""
     n_tiles = -(-c // _TILE)
-    tiles = n_tiles * (n_tiles + 1) // 2
+    tiles = n_tiles * (n_tiles + 1) // 2 * batch
     splits = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), -(-n // 256)))
     rows = -(-n // splits)
     rows = -(-rows // _STAGE) * _STAGE
@@ -77,8 +89,8 @@ def _gram_lib():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -88,44 +100,49 @@ def _gram_bwd_lib():
     fn = lib.astt_gram_bwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def gram_cuda(f: torch.Tensor, scale: float) -> torch.Tensor:
-    """The Gram forward kernel on a CUDA tensor (no fallback)."""
+    """The Gram forward kernel on a CUDA tensor (no fallback): (c, c) for
+    an (n, c) matrix, (B, c, c) for a (B, n, c) stack, one launch."""
     _check_features(f, "gram")
-    n, c = f.shape
+    batch, n, c = _lanes(f).shape
     sms = torch.cuda.get_device_properties(f.device).multi_processor_count
-    splits, rows = split_plan(n, c, sms)
+    splits, rows = split_plan(n, c, sms, batch)
     fn = _gram_lib()
     with torch.cuda.device(f.device):
-        part = torch.empty((splits, c, c), dtype=torch.float32, device=f.device)
-        out = torch.empty((c, c), dtype=torch.float32, device=f.device)
+        part = torch.empty((batch, splits, c, c), dtype=torch.float32,
+                           device=f.device)
+        out = torch.empty(f.shape[:-2] + (c, c), dtype=torch.float32,
+                          device=f.device)
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], n, c, splits, rows,
-                 float(scale), part.data_ptr(), out.data_ptr(), stream)
+        err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], batch, n, c, splits,
+                 rows, float(scale), part.data_ptr(), out.data_ptr(), stream)
     build.check(err, "gram")
     LAUNCHES["gram"] += 1
     return out
 
 
 def gram_bwd_cuda(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The Gram backward kernel on CUDA tensors (no fallback)."""
+    """The Gram backward kernel on CUDA tensors (no fallback): F (n, c)
+    with g (c, c), or F (B, n, c) with g (B, c, c), one launch."""
     _check_features(f, "gram_bwd")
-    n, c = f.shape
+    batch, n, c = _lanes(f).shape
+    want = f.shape[:-2] + (c, c)
     if (not g.is_cuda or g.device != f.device or g.dtype != torch.float32
-            or tuple(g.shape) != (c, c) or not g.is_contiguous()):
-        raise ValueError(f"gram_bwd: g must be a contiguous ({c}, {c}) "
+            or tuple(g.shape) != want or not g.is_contiguous()):
+        raise ValueError(f"gram_bwd: g must be a contiguous {want} "
                          f"float32 tensor on {f.device}")
     fn = _gram_bwd_lib()
     with torch.cuda.device(f.device):
-        out = torch.empty((n, c), dtype=f.dtype, device=f.device)
+        out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], g.data_ptr(), n, c,
-                 out.data_ptr(), stream)
+        err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], g.data_ptr(), batch, n,
+                 c, out.data_ptr(), stream)
     build.check(err, "gram_bwd")
     LAUNCHES["gram_bwd"] += 1
     return out

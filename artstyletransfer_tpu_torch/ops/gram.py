@@ -2,9 +2,11 @@
 
 gram_matrix(x) of an NHWC feature map is the (b, c, c) float32 batch of
 F^T F / (c*h*w) with F = x[i].reshape(h*w, c) (reference math_utils.py:
-26-34). Its autograd backward is the Gram-backward kernel with
-g_sym = s (G_bar + G_bar^T), as the JAX package's ``_gram_vjp_bwd``. A CUDA
-tensor runs the kernels, a CPU tensor their plain versions.
+26-34), one Gram per batch element (lane), from one kernel launch. Its
+autograd backward is the Gram-backward kernel with g_sym = s (G_bar +
+G_bar^T), as the JAX package's ``_gram_vjp_bwd``, again one launch for
+every lane. A CUDA tensor runs the kernels, a CPU tensor their plain
+versions.
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ import torch
 from ..kernels import gram as kgram
 
 
-def features(x: torch.Tensor, i: int) -> torch.Tensor:
-    """Batch element i of an NHWC map as its (h*w, c) row-major matrix (a
-    view when the map is NHWC-contiguous, as the VGG taps are)."""
-    _, h, w, c = x.shape
-    return x[i].reshape(h * w, c).contiguous()
+def features(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC map as the (b, h*w, c) stack of its lanes' row-major feature
+    matrices (a view when the map is NHWC-contiguous, as the VGG taps
+    are)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h * w, c).contiguous()
 
 
 class GramFn(torch.autograd.Function):
@@ -28,15 +31,13 @@ class GramFn(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, scale: float) -> torch.Tensor:
         ctx.save_for_backward(x)
         ctx.scale = scale
-        return torch.stack([kgram.gram(features(x, i), scale)
-                            for i in range(x.shape[0])])
+        return kgram.gram(features(x), scale)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (x,) = ctx.saved_tensors
         g_sym = ((g + g.transpose(-1, -2)) * ctx.scale).float().contiguous()
-        dx = torch.stack([kgram.gram_bwd(features(x, i), g_sym[i])
-                          for i in range(x.shape[0])])
+        dx = kgram.gram_bwd(features(x), g_sym)
         return dx.reshape(x.shape), None
 
 

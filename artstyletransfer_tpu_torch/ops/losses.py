@@ -1,11 +1,16 @@
-"""Content / style / TV losses for one pyramid level.
+"""Content / style / TV losses for one pyramid level, per lane of a batch.
 
-Reference parity (reference neural_style_transfer.py:84-112):
-- content loss: mean MSE between conv4_2 feature maps
-- style loss: mean over style layers of MSE between Gram matrices, taking
-  batch element [0] of each Gram
-- tv loss: squared-mean TV of the (preprocessed) level image
+Reference parity (reference neural_style_transfer.py:84-112), for each
+lane (batch element) b:
+- content loss: mean MSE between lane b's conv4_2 feature maps
+- style loss: mean over style layers of MSE between lane b's Gram matrices
+- tv loss: squared-mean TV of lane b's (preprocessed) level image
 - level total = content_weight*content + style_weight*style + tv_weight*tv
+
+Every loss is a (B,) tensor: the JAX package runs one job per lane under
+``jax.vmap``, where each of these reductions sees a batch of one; here the
+lane axis is written out and every reduction stays inside its lane. A
+batch of one gives the single job's losses.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 from ..kernels import gram as kgram
 from .gram import features, gram_matrix
-from .tv import total_variation
+from .tv import lane_total_variation
 
 
 class LevelLoss(NamedTuple):
@@ -27,55 +32,63 @@ class LevelLoss(NamedTuple):
     tv: torch.Tensor
 
 
+def _lane_mean(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], -1).mean(dim=1)
+
+
 def content_loss(target_content: torch.Tensor,
                  current_content: torch.Tensor) -> torch.Tensor:
-    """MSE between content-tap feature maps, accumulated in float32."""
-    return torch.mean(torch.square(target_content.float()
+    """(B,) MSE between content-tap feature maps, accumulated in float32."""
+    return _lane_mean(torch.square(target_content.float()
                                    - current_content.float()))
 
 
 def regularization(y: torch.Tensor) -> torch.Tensor:
-    """sum((y/128)^10) / numel^10 — present in the reference but unused
-    (reference math_utils.py:44-47). Kept for component parity."""
-    els = float(np.prod(tuple(y.shape)))
-    return torch.sum(torch.pow(y / 128.0, 10)) / (els ** 10)
+    """(B,) sum((y/128)^10) / numel^10 over each lane — present in the
+    reference but unused (reference math_utils.py:44-47). Kept for
+    component parity."""
+    els = float(np.prod(tuple(y.shape[1:])))
+    return torch.pow(y / 128.0, 10).reshape(y.shape[0], -1).sum(dim=1) / (
+        els ** 10)
 
 
 def style_loss(target_grams: Sequence[torch.Tensor],
                current_grams: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Mean over layers of MSE between Gram matrices (batch element 0)."""
+    """(B,) mean over layers of the MSE between each lane's (c, c) Grams."""
     acc = 0.0
     for gt, gh in zip(target_grams, current_grams):
-        acc = acc + torch.mean(torch.square(gt[0] - gh[0]))
+        acc = acc + _lane_mean(torch.square(gt - gh))
     return acc / len(target_grams)
 
 
 class StyleLayerMSE(torch.autograd.Function):
-    """mean((gram(f)[0] - gt)^2) with the closed-form backward.
+    """(B,) mean((gram(f)[b] - gt[b])^2) with the closed-form backward.
 
     The port of the JAX package's ``_style_layer_mse_convbwd``
-    (ops/losses.py:79-114). Forward: the Gram kernel. Backward: the
-    Gram-backward kernel, df = f @ g_sym with
-    g_sym = (D + D^T) * 2s / (c^3 h w), D = G - Gt (real target Grams are
-    symmetric, making D + D^T = 2D, but that is not assumed). g_sym stays
-    float32 (the JAX package rounds it to the tap dtype first). Batch 1
-    only, the engine's invariant.
+    (ops/losses.py:79-114), with the lane axis written out. Forward: the
+    Gram kernel, all lanes in one launch. Backward: the Gram-backward
+    kernel, all lanes in one launch, df[b] = f[b] @ g_sym[b] with
+    g_sym[b] = (D + D^T) * 2 s[b] / (c^3 h w), D = G[b] - Gt[b] (real
+    target Grams are symmetric, making D + D^T = 2D, but that is not
+    assumed). g_sym stays float32 (the JAX package rounds it to the tap
+    dtype first).
     """
 
     @staticmethod
     def forward(ctx, f: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
         _, h, w, c = f.shape
-        g = kgram.gram(features(f, 0), 1.0 / (c * h * w))
+        g = kgram.gram(features(f), 1.0 / (c * h * w))
         ctx.save_for_backward(f, g, gt)
-        return torch.mean(torch.square(g - gt))
+        return _lane_mean(torch.square(g - gt))
 
     @staticmethod
     def backward(ctx, s: torch.Tensor):
         f, g, gt = ctx.saved_tensors
         _, h, w, c = f.shape
         d = g - gt
-        g_sym = ((d + d.T) * (s * (2.0 / (c * c * c * h * w)))).contiguous()
-        df = kgram.gram_bwd(features(f, 0), g_sym)
+        scale = s.view(-1, 1, 1) * (2.0 / (c * c * c * h * w))
+        g_sym = ((d + d.transpose(-1, -2)) * scale).contiguous()
+        df = kgram.gram_bwd(features(f), g_sym)
         return df.reshape(f.shape), None
 
 
@@ -86,12 +99,14 @@ def level_loss(feats, target_content: torch.Tensor,
                style_indices: Sequence[int] = (0, 1, 2, 3, 5),
                use_pallas: bool = False,
                fused_style_bwd: bool = True) -> LevelLoss:
-    """Weighted loss of one pyramid level given current feature taps.
+    """Weighted (B,) losses of one pyramid level given current feature taps
+    of B lanes and each lane's targets ((B, ...) content tap, (B, c, c)
+    Grams).
 
     fused_style_bwd (default on) takes each style layer's loss through
-    StyleLayerMSE (closed-form backward) for batch-1 taps; otherwise the
-    Grams go through gram_matrix and autograd, whose backward is the same
-    Gram-backward kernel with the Gram's own g_sym.
+    StyleLayerMSE (closed-form backward); otherwise the Grams go through
+    gram_matrix and autograd, whose backward is the same Gram-backward
+    kernel with the Gram's own g_sym.
 
     use_pallas is kept for parity with the JAX package's signature and
     selects the same branch it does there (it turns the fused path off).
@@ -100,15 +115,14 @@ def level_loss(feats, target_content: torch.Tensor,
     and on a CPU tensor through their plain versions.
     """
     c = content_loss(target_content, feats[content_index])
-    if fused_style_bwd and not use_pallas and all(
-            feats[i].shape[0] == 1 for i in style_indices):
+    if fused_style_bwd and not use_pallas:
         acc = 0.0
         for gt, i in zip(target_grams, style_indices):
-            acc = acc + StyleLayerMSE.apply(feats[i], gt[0])
+            acc = acc + StyleLayerMSE.apply(feats[i], gt)
         s = acc / len(target_grams)
     else:
         current_grams = [gram_matrix(feats[i]) for i in style_indices]
         s = style_loss(target_grams, current_grams)
-    t = total_variation(level_img)
+    t = lane_total_variation(level_img)
     total = content_weight * c + style_weight * s + tv_weight * t
     return LevelLoss(total=total, content=c, style=s, tv=t)

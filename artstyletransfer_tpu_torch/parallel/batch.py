@@ -1,0 +1,576 @@
+"""Batched multi-job style transfer on one card: a job queue in lanes.
+
+The port of the JAX package's ``parallel/batch.py``. The reference's
+throughput model is "N independent jobs, at most 2 at a time on one GPU"
+(reference config.py:1, task_executor.py:9,30). Here same-shape jobs are
+STACKED into one batch: the JAX package vmaps its per-job step over a job
+axis; the port writes that axis out as a leading lane axis B through the
+whole step (engine/transfer.py): every VGG pass, Gram and TV kernel launch
+serves all lanes at once, every loss is a (B,) vector reduced inside its
+lane, Adam keeps per-lane moments under one step counter, and L-BFGS runs
+the lanes' line searches in lockstep (engine/lbfgs.py lane forms).
+
+Shape bucketing: a batch requires identical content shapes and identical
+style shapes across jobs. ``bucket_jobs`` groups an arbitrary job queue
+into such buckets; the canonicalize helpers collapse arbitrary inputs into
+a few aspect buckets.
+
+Not ported yet (they raise NotImplementedError): checkpoint/resume (waits
+for engine/checkpoint.py), a device mesh (job placement over several
+cards) and space sharding (a GSPMD feature of the JAX package).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config, apply_precision, resolve_device
+from ..engine.init_pipeline import build_init_image
+from ..engine.pyramid import build_input_pyramids, level_shape
+from ..engine.transfer import (_Adam, _Lbfgs, _check_supported,
+                               _compute_targets, _make_pyramid_loss,
+                               _raise_nonfinite_batch, lbfgs_history_gb)
+from ..models.weights import load_vgg19_params, params_from_jax
+from ..ops.resize import bicubic_resize_np
+from ..utils.image import prepare_img, unprepare_img
+
+
+def _not_ported(mesh, shard_space: bool) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "job placement over a device mesh is not ported yet; the port "
+            "batches on one card (mesh=None)")
+    if shard_space:
+        raise NotImplementedError(
+            "space sharding (one job's pixels over several cards) is not "
+            "ported")
+
+
+def _select_targets(targets, idx: torch.Tensor):
+    """Rows idx of every level's lane-stacked targets (the counterpart of
+    the JAX package's _gather_rows on the targets)."""
+    return tuple((content.index_select(0, idx),
+                  tuple(g.index_select(0, idx) for g in grams))
+                 for content, grams in targets)
+
+
+def shrink_target(n_still: int, jobs_axis: int = 1) -> int:
+    """The batch size convergence shrinking re-forms `n_still` live jobs
+    at: the next power of two, rounded up to a jobs-axis multiple (the
+    JAX package's rule; on one card jobs_axis is 1)."""
+    tgt = 1 << (n_still - 1).bit_length()
+    return -(-tgt // jobs_axis) * jobs_axis
+
+
+def shrink_ladder(size: int, jobs_axis: int = 1) -> List[int]:
+    """Every batch size reachable from `size` by convergence shrinking
+    (ascending), derived from shrink_target."""
+    return sorted({t for t in (shrink_target(n, jobs_axis)
+                               for n in range(1, size))
+                   if t < size})
+
+
+class BatchedTransferJob:
+    """N same-shape style-transfer jobs as one batch of lanes on one card.
+
+    Runs on CUDA unless device='cpu' is passed; raises when CUDA is
+    unavailable and the CPU was not asked for. params: repo-format numpy
+    weights (HWIO); None resolves them from cfg.seed. Job i's noise init
+    is seeded with cfg.seed + i, as in the JAX package. pad_batch_to
+    replicates the last job up to that many lanes; padded results are
+    dropped in run()."""
+
+    def __init__(self, contents: Sequence[np.ndarray],
+                 styles: Sequence[np.ndarray], cfg: Config, params=None,
+                 mesh=None, shard_space: bool = False,
+                 init_overrides: Optional[Sequence[np.ndarray]] = None,
+                 pad_batch_to: Optional[int] = None, device=None):
+        if len(contents) != len(styles) or not contents:
+            raise ValueError("need one style per content and at least one "
+                             "job")
+        _not_ported(mesh, shard_space)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        _check_supported(cfg)
+        apply_precision(cfg)
+        if params is None:
+            params = load_vgg19_params(seed=cfg.seed)
+        self.params = params_from_jax(params, self.device)
+
+        c0 = contents[0].shape
+        s0 = styles[0].shape
+        for c, s in zip(contents, styles):
+            if c.shape != c0 or s.shape != s0:
+                raise ValueError("all jobs in a batch must share shapes; "
+                                 "use bucket_jobs() to group them")
+
+        self.real_batch = len(contents)
+        contents = list(contents)
+        styles = list(styles)
+        init_overrides = list(init_overrides) if init_overrides else None
+        if pad_batch_to is not None:
+            while len(contents) < pad_batch_to:
+                contents.append(contents[-1])
+                styles.append(styles[-1])
+                if init_overrides:
+                    init_overrides.append(init_overrides[-1])
+        self.batch = len(contents)
+
+        # per-job pyramids, stacked along the lane axis
+        c_stack: List[List[np.ndarray]] = []
+        s_stack: List[List[np.ndarray]] = []
+        x0 = []
+        for i, (c, s) in enumerate(zip(contents, styles)):
+            c_lvls, s_lvls = build_input_pyramids(
+                c, s, cfg.levels_num, cfg.base_diameter)
+            c_stack.append([prepare_img(im) for im in c_lvls])
+            s_stack.append([prepare_img(im) for im in s_lvls])
+            if init_overrides is not None:
+                init_img = init_overrides[i]
+            else:
+                init_img, _ = build_init_image(
+                    cfg.init_method, c, s, cfg,
+                    rng=np.random.default_rng(cfg.seed + i))
+            x0.append(prepare_img(init_img).reshape(-1))
+
+        self.level_shapes = [tuple(arr.shape) for arr in c_stack[0]]
+
+        def lanes_on_device(stack, lvl):
+            return torch.from_numpy(np.concatenate(
+                [per_job[lvl] for per_job in stack])).to(self.device)
+
+        n_levels = len(self.level_shapes)
+        c_dev = [lanes_on_device(c_stack, lvl) for lvl in range(n_levels)]
+        s_dev = [lanes_on_device(s_stack, lvl) for lvl in range(n_levels)]
+        self._loss_fn = _make_pyramid_loss(self.level_shapes, cfg)
+        self.targets = _compute_targets(self.params, c_dev, s_dev, cfg)
+        self._x0 = torch.from_numpy(np.stack(x0)).to(self.device)  # (B, n)
+
+    def _loss_grad(self, x: torch.Tensor, targets):
+        """((B,) losses, (B, n) gradients) at x, both detached: the gradient
+        of the losses' sum, which is each lane's own gradient."""
+        x = x.detach().requires_grad_(True)
+        total, _ = self._loss_fn(self.params, targets, x)
+        (g,) = torch.autograd.grad(total.sum(), x)
+        return total.detach(), g
+
+    @torch.no_grad()
+    def initial_losses(self) -> np.ndarray:
+        """(real_batch,) total losses at the init images."""
+        total, _ = self._loss_fn(self.params, self.targets, self._x0)
+        return total[:self.real_batch].cpu().numpy()
+
+    def run(self, iters_num: Optional[int] = None,
+            stream_every: Optional[int] = None,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: Optional[int] = None,
+            resume: bool = False,
+            yield_images: bool = True,
+            ) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
+        """Yields (steps_done, images (B,H,W,3) [0,1]-domain, losses (B,))
+        every stream_every steps, for the real (unpadded) jobs.
+
+        yield_images=False skips the device->host image copy on
+        intermediate chunks: those yield (done, None, losses), the losses
+        as a device tensor over every lane (padding included) unless a
+        convergence check already fetched them; the final chunk always
+        carries the images.
+
+        cfg.stop_tol > 0: a job whose relative loss change over a chunk is
+        <= stop_tol is done (latched). With cfg.stop_shrink a done job
+        leaves the batch at the chunk boundary (its result freezes there)
+        and the remaining lanes re-form at shrink_target's size by
+        index_select on every state tensor; without it the batch stops
+        once every job has converged.
+        """
+        if checkpoint_path or checkpoint_every or resume:
+            raise NotImplementedError("checkpoint/resume is not ported yet")
+        cfg = self.cfg
+        apply_precision(cfg)
+        iters = iters_num if iters_num is not None else cfg.iters_num
+        chunk = stream_every if stream_every is not None else cfg.stream_every
+        chunk = max(1, min(chunk, iters))
+
+        targets = self.targets  # shrinking selects its lanes
+
+        def loss_grad(x):
+            return self._loss_grad(x, targets)
+
+        x = self._x0.clone()
+        opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
+            loss_grad, x, cfg)
+        done = 0
+        top = self.level_shapes[0]  # (1, H, W, 3) per job
+        check_stop = cfg.stop_tol > 0.0
+        shrink = check_stop and cfg.stop_shrink
+        # lane -> original job index; None = padding replica
+        lane_orig: List[Optional[int]] = (
+            list(range(self.real_batch))
+            + [None] * (self.batch - self.real_batch))
+        finished: Dict[int, Tuple[np.ndarray, float]] = {}  # orig -> row, loss
+        f_prev: Dict[int, float] = {}  # orig -> last chunk's loss
+        # convergence latches per job: once a job's chunk change dips under
+        # tol it is done, even if later chunks oscillate back over tol
+        latched: set = set()
+
+        def lane_of():
+            return {orig: lane for lane, orig in enumerate(lane_orig)
+                    if orig is not None}
+
+        def compose_losses(f_np):
+            # original-order (real_batch,) losses: live lanes from the
+            # batch, dropped jobs from their frozen value
+            lanes = lane_of()
+            out = np.empty((self.real_batch,), dtype=np.float32)
+            for orig in range(self.real_batch):
+                out[orig] = (finished[orig][1] if orig in finished
+                             else f_np[lanes[orig]])
+            return out
+
+        def materialize(done_k, x_k, f_k):
+            rows = x_k.reshape((len(lane_orig),) + top[1:]).cpu().numpy()
+            lanes = lane_of()
+            imgs_k = np.stack([
+                unprepare_img(finished[orig][0] if orig in finished
+                              else rows[lanes[orig]])
+                for orig in range(self.real_batch)])
+            losses_k = compose_losses(f_k.cpu().numpy())
+            if cfg.nan_checks and not np.isfinite(losses_k).all():
+                bad = np.flatnonzero(~np.isfinite(losses_k)).tolist()
+                _raise_nonfinite_batch(bad, done_k, self.real_batch, cfg)
+            return done_k, imgs_k, losses_k
+
+        while done < iters:
+            k = min(chunk, iters - done)
+            for i in range(k):
+                x, f = opt.step(x, done + i)
+            done += k
+            converged = False
+            f_np = None
+            if check_stop:
+                f_np = f.cpu().numpy()
+                # a NaN can never satisfy the convergence test: surface it
+                # now instead of burning the remaining budget
+                if cfg.nan_checks:
+                    bad = [orig for lane, orig in enumerate(lane_orig)
+                           if orig is not None and not np.isfinite(f_np[lane])]
+                    if bad:
+                        _raise_nonfinite_batch(bad, done, self.real_batch, cfg)
+                ready = []   # (lane, orig, loss): latched, still in batch
+                still = []   # lanes of real jobs not yet converged
+                for lane, orig in enumerate(lane_orig):
+                    if orig is None:
+                        continue
+                    cur = float(f_np[lane])
+                    prev = f_prev.get(orig)
+                    if (orig in latched
+                            or (prev is not None
+                                and abs(prev - cur)
+                                <= cfg.stop_tol * max(1.0, abs(cur)))):
+                        latched.add(orig)
+                        ready.append((lane, orig, cur))
+                    else:
+                        still.append(lane)
+                    f_prev[orig] = cur
+                if ready and not still:
+                    converged = True  # every remaining job is done
+                elif ready and still and shrink and done < iters:
+                    tgt = shrink_target(len(still))
+                    if tgt < len(lane_orig):
+                        # freeze the converged jobs' results now, then keep
+                        # the remaining lanes, re-padded by repeating the
+                        # last one
+                        rows = x.reshape((len(lane_orig),) + top[1:])
+                        for lane, orig, cur in ready:
+                            finished[orig] = (rows[lane].cpu().numpy(), cur)
+                        sel = still + [still[-1]] * (tgt - len(still))
+                        print(f"stop_tol: {len(ready)} job(s) converged at "
+                              f"step {done}; batch {len(lane_orig)} -> "
+                              f"{tgt}", file=sys.stderr)
+                        idx = torch.as_tensor(sel, dtype=torch.long,
+                                              device=x.device)
+                        x = x.index_select(0, idx)
+                        f = f.index_select(0, idx)
+                        opt.select(sel)
+                        targets = _select_targets(targets, idx)
+                        f_np = f_np[sel]
+                        lane_orig = ([lane_orig[ln] for ln in still]
+                                     + [None] * (tgt - len(still)))
+            if yield_images or done >= iters or converged:
+                yield materialize(done, x, f)
+            elif f_np is not None:
+                yield done, None, compose_losses(f_np)
+            else:
+                yield done, None, f
+            if converged:
+                return
+
+
+def bucket_jobs(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]]
+                ) -> Dict[tuple, List[Tuple[str, np.ndarray, np.ndarray]]]:
+    """Group (task_id, content, style) jobs by (content.shape, style.shape)."""
+    buckets: Dict[tuple, list] = defaultdict(list)
+    for job in jobs:
+        buckets[(job[1].shape, job[2].shape)].append(job)
+    return dict(buckets)
+
+
+# Canonical aspect ratios (w/h) for content bucketing in serving mode.
+DEFAULT_ASPECT_BUCKETS = (1.0, 4 / 3, 3 / 4, 16 / 9, 9 / 16, 3 / 2, 2 / 3)
+
+
+def bucket_content_shape(aspect: float, cfg: Config) -> tuple:
+    """(h, w) of the canonical content shape for an aspect bucket (w/h):
+    shortest side = base_diameter * 2^(levels-1)."""
+    side = cfg.base_diameter * 2 ** (cfg.levels_num - 1)
+    if aspect >= 1.0:
+        return side, int(round(side * aspect))
+    return int(round(side / aspect)), side
+
+
+def crop_to_aspect_bucket(img: np.ndarray,
+                          aspects: Sequence[float] = DEFAULT_ASPECT_BUCKETS
+                          ) -> np.ndarray:
+    """Center-crop an HWC image to the nearest canonical aspect ratio, so
+    jobs whose contents land in the same aspect bucket share a batch."""
+    h, w = img.shape[:2]
+    target = min(aspects, key=lambda a: abs(a - w / h))
+    if w / h > target:
+        new_w = int(round(h * target))
+        off = (w - new_w) // 2
+        img = img[:, off:off + new_w]
+    else:
+        new_h = int(round(w / target))
+        off = (h - new_h) // 2
+        img = img[off:off + new_h, :]
+    return np.ascontiguousarray(img)
+
+
+def canonicalize_content(content: np.ndarray, cfg: Config) -> np.ndarray:
+    """Center-crop to the nearest canonical aspect bucket and resize to that
+    bucket's exact top-pyramid-level shape (lossless for the pipeline:
+    resolution above the top level is never used). The target shape comes
+    from the bucket's exact ratio, not the crop's rounded one."""
+    h, w = content.shape[:2]
+    target = min(DEFAULT_ASPECT_BUCKETS, key=lambda a: abs(a - w / h))
+    c = crop_to_aspect_bucket(content, aspects=(target,))
+    th, tw = bucket_content_shape(target, cfg)
+    return bicubic_resize_np(c, th, tw)
+
+
+def canonicalize_style(style: np.ndarray, cfg: Config) -> np.ndarray:
+    """Resize a style image to a square of the level-0 base diameter; style
+    images only contribute Gram statistics, so the distortion is mild and
+    jobs sharing a content bucket share a batch whatever their style's
+    aspect ratio."""
+    side = cfg.base_diameter
+    return bicubic_resize_np(style, side, side)
+
+
+def resolve_batch_policy(cfg: Config, batch_policy: str = "auto") -> str:
+    """Resolve 'auto' to 'batched' | 'sequential' for a job queue.
+
+    The JAX package's routing, not yet measured on this card: lr-opening
+    full-Wolfe L-BFGS runs one job at a time (batched, the lanes' line
+    searches run in lockstep at the longest search of the batch), while
+    Adam, reference-semantics L-BFGS (max_ls=0, a fixed-length search) and
+    unit-opening full-Wolfe (lbfgs_t_init='unit': most lanes accept the
+    first trial) batch.
+    """
+    if batch_policy != "auto":
+        if batch_policy not in ("batched", "sequential"):
+            raise ValueError(f"unknown batch_policy {batch_policy!r}; "
+                             "expected 'auto', 'batched' or 'sequential'")
+        return batch_policy
+    if (cfg.optimizer == "lbfgs" and cfg.lbfgs_max_ls_steps > 0
+            and cfg.lbfgs_t_init != "unit"):
+        return "sequential"
+    return "batched"
+
+
+# The JAX package's values, not yet measured on this card: the batch size
+# past which job-steps/s stopped improving on one TPU chip, and its budget
+# for the L-BFGS s/y history across a batch.
+_SATURATION_BATCH = 32
+_LBFGS_HISTORY_BUDGET_GB = 8.0
+
+
+def max_jobs_per_batch(cfg: Config, content_shape: tuple) -> int:
+    """Memory-aware cap on jobs per batch for one bucket: the L-BFGS
+    history pairs (2 * history * n_pixels float32 per job) against the
+    history budget, and the saturation batch."""
+    cap = _SATURATION_BATCH
+    if cfg.optimizer == "lbfgs":
+        h, w = level_shape(content_shape[0], content_shape[1],
+                           cfg.levels_num - 1, cfg.base_diameter)
+        per_job_gb = lbfgs_history_gb(cfg, [(1, h, w, 3)])
+        if per_job_gb > 0:
+            cap = min(cap, max(1, int(_LBFGS_HISTORY_BUDGET_GB / per_job_gb)))
+    return cap
+
+
+def resolve_group_cap(cfg: Config, content_shape: tuple, jobs_axis: int,
+                      policy: str, max_batch: Optional[int]) -> int:
+    """Jobs per group for one bucket (see run_job_queue). An explicit
+    max_batch is a literal total cap, rounded down to a multiple of the
+    jobs axis (1 on one card)."""
+    if policy == "sequential":
+        return 1
+    if max_batch is not None:
+        cap = max_batch
+        if jobs_axis > 1 and cap >= jobs_axis:
+            cap -= cap % jobs_axis
+        return max(1, cap)
+    return max_jobs_per_batch(cfg, content_shape) * jobs_axis
+
+
+def planned_round_sizes(cfg: Config, content_shape: tuple, n_jobs: int,
+                        jobs_axis: int = 1, policy: str = "auto",
+                        max_batch: Optional[int] = None,
+                        pad_batches: bool = True) -> list:
+    """The batch sizes run_job_queue dispatches for a single-bucket queue of
+    n_jobs same-shape jobs: the policy routing, the group cap, the
+    power-of-two pad rule and, with stop_shrink, the shrink ladder."""
+    policy = resolve_batch_policy(cfg, policy)
+    cap = resolve_group_cap(cfg, content_shape, jobs_axis, policy, max_batch)
+    sizes = set()
+    remaining = n_jobs
+    while remaining > 0:
+        g = min(remaining, cap)
+        remaining -= g
+        size = g
+        if pad_batches and policy != "sequential":
+            pad_to = min(cap, 1 << (g - 1).bit_length())
+            if pad_to > g:
+                size = pad_to
+        if policy != "sequential" and jobs_axis > 1:
+            size = -(-size // jobs_axis) * jobs_axis
+        sizes.add(size)
+    if cfg.stop_tol > 0.0 and cfg.stop_shrink and policy != "sequential":
+        for size in list(sizes):
+            sizes.update(shrink_ladder(size, jobs_axis))
+    return sorted(sizes)
+
+
+def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
+                  cfg: Config, params=None, mesh=None,
+                  shard_space: bool = False, progress=None,
+                  canonicalize_styles: bool = False,
+                  canonicalize_contents: bool = False,
+                  batch_policy: str = "auto",
+                  max_batch: Optional[int] = None,
+                  pad_batches: bool = False,
+                  stream_images: bool = True,
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: Optional[int] = None,
+                  resume: bool = False,
+                  retries: int = 0,
+                  retry_delay_s: float = 25.0,
+                  device=None,
+                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, Exception]]:
+    """Run an arbitrary job queue: bucket by shape, batch each bucket in
+    lanes, stream progress.
+
+    Returns ({task_id: final image}, {task_id: exception}): a failed group
+    (e.g. out of memory at an extreme shape) is isolated, its task_ids land
+    in the failures dict and the rest of the queue runs.
+
+    batch_policy ('auto' default) routes as resolve_batch_policy says:
+    'sequential' runs groups of one job. Oversized buckets split into
+    groups of at most max_batch jobs (default max_jobs_per_batch).
+    canonicalize_styles squares every style to the base diameter, and
+    canonicalize_contents crops and resizes contents to their aspect
+    bucket, so that mixed inputs share batches. pad_batches=True pads every
+    batched group up to the next power of two (capped by the group cap) by
+    replicating jobs whose results are dropped. stream_images=False skips
+    the per-chunk image copy (progress then receives images=None except
+    for the final chunk). retries re-runs a failed group up to that many
+    extra times after retry_delay_s. progress(task_id, percent, image,
+    loss) is called per job and chunk. Runs on CUDA unless device='cpu'.
+
+    checkpoint_dir / checkpoint_every / resume, a mesh and shard_space are
+    not ported yet and raise NotImplementedError.
+    """
+    if checkpoint_dir is not None or checkpoint_every or resume:
+        raise NotImplementedError(
+            "queue checkpoints are not ported yet (engine/checkpoint.py)")
+    _not_ported(mesh, shard_space)
+    dev = resolve_device(device)
+    if canonicalize_contents:
+        jobs = [(tid, canonicalize_content(c, cfg), s) for tid, c, s in jobs]
+    if canonicalize_styles:
+        jobs = [(tid, c, canonicalize_style(s, cfg)) for tid, c, s in jobs]
+
+    params = params if params is not None else load_vgg19_params(seed=cfg.seed)
+    policy = resolve_batch_policy(cfg, batch_policy)
+    results: Dict[str, np.ndarray] = {}
+    failures: Dict[str, Exception] = {}
+    for bucket in bucket_jobs(jobs).values():
+        cap = resolve_group_cap(cfg, bucket[0][1].shape, 1, policy, max_batch)
+        groups = [bucket[i:i + cap] for i in range(0, len(bucket), cap)]
+        for group in groups:
+            ids = [j[0] for j in group]
+            pad_to = None
+            if pad_batches and policy != "sequential":
+                pad_to = min(cap, 1 << (len(group) - 1).bit_length())
+                if pad_to <= len(group):
+                    pad_to = None
+            last_exc: Optional[Exception] = None
+            for attempt in range(retries + 1):
+                if attempt:
+                    print(f"run_job_queue: group of {len(ids)} job(s) "
+                          f"failed ({type(last_exc).__name__}: {last_exc});"
+                          f" retry {attempt}/{retries} in "
+                          f"{retry_delay_s:.0f}s", file=sys.stderr)
+                    time.sleep(retry_delay_s)
+                try:
+                    batch = BatchedTransferJob(
+                        [j[1] for j in group], [j[2] for j in group], cfg,
+                        params=params, pad_batch_to=pad_to, device=dev)
+                    imgs = None
+                    for done, imgs, losses in batch.run(
+                            yield_images=stream_images):
+                        if progress is not None:
+                            pct = done / cfg.iters_num * 100.0
+                            # one device->host read for the whole batch
+                            losses = np.asarray(
+                                losses.cpu() if torch.is_tensor(losses)
+                                else losses)
+                            for i, tid in enumerate(ids):
+                                progress(tid, pct,
+                                         imgs[i] if imgs is not None
+                                         else None,
+                                         float(losses[i]))
+                    if imgs is None:
+                        raise RuntimeError(
+                            f"batch of {len(ids)} job(s) yielded no chunks "
+                            f"(iters_num={cfg.iters_num})")
+                    if (progress is not None and cfg.stop_tol > 0.0
+                            and done < cfg.iters_num):
+                        # an early stop ended the group below the budget;
+                        # consumers key completion on percent >= 100
+                        for i, tid in enumerate(ids):
+                            progress(tid, 100.0, imgs[i], float(losses[i]))
+                    for i, tid in enumerate(ids):
+                        results[tid] = imgs[i]
+                    last_exc = None
+                    break
+                except Exception as e:  # noqa: BLE001 — group isolation
+                    # one bad group (e.g. out of memory at an extreme
+                    # shape) must not kill the rest of the queue
+                    last_exc = e
+            if last_exc is not None:
+                for tid in ids:
+                    failures[tid] = last_exc
+    if failures:
+        print(f"run_job_queue: {len(failures)} job(s) failed: "
+              + ", ".join(f"{tid}: {type(e).__name__}: {e}"
+                          for tid, e in sorted(failures.items())),
+              file=sys.stderr)
+    return results, failures

@@ -10,10 +10,15 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               card's name and power limit (nvidia-smi);
 2. kernels  — calls each kernel on the card at every shape the main path
               gives it (Gram forward/backward in float32 and bfloat16, TV
-              at 512², 256² and 511x769), holds it against its plain
-              PyTorch version with a stated tolerance, and times it (device
-              time from torch.profiler) beside its bound, the plain version
-              and one library call;
+              at 512², 256² and 511x769), the batched Gram, Gram-backward
+              and TV at 8 lanes of the 512 px shapes and at the queue
+              phase's own lane counts and shapes (one launch each),
+              and the fused conv3x3+bias+ReLU at all 26 convs of the
+              truncated VGG19 at 512² and 256² inputs (plus one gradient
+              check through its autograd Function); holds each against its
+              plain PyTorch version with a stated tolerance, and times it
+              (device time from torch.profiler) beside its bound, the plain
+              version and one library call;
 3. golden   — reruns two of the JAX package's committed one-step goldens
               (tests/goldens) on the card at full float32 precision;
 4. main     — drives the main path, Executor -> neural_style_transfer ->
@@ -22,7 +27,22 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               then 20 Adam steps, 2 pyramid levels (256 and 512). The
               kernels' launch counters are zeroed just before and read just
               after; every kernel must have launched and the loss must be
-              finite and lower than at the start.
+              finite and lower than at the start;
+5. queue    — drives the batched job queue, run_job_queue ->
+              BatchedTransferJob, at full VGG19 width with the same config:
+              8 Adam jobs in two aspect buckets (6 at 512x512, 2 at 384x512
+              contents; mixed style sizes, canonicalized), once at the
+              default precision (TF32 convs) and once at full float32,
+              then 4 unit-opening L-BFGS jobs (batched by the 'auto'
+              policy), each queue three times for a spread of its rates.
+              Counters are zeroed before and read after each;
+              every lane's loss must be finite and fall, the kernels'
+              launches per batched evaluation must not depend on the number
+              of lanes, and at full float32 the first Adam lane must end
+              within rtol 1e-3 of the same job run alone (whose steps/s is
+              reported beside each queue's). The fused conv kernel is not
+              on any path (VGG runs on cuDNN, as on XLA in the JAX
+              package): its launches there are 0.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
@@ -53,7 +73,10 @@ KERNELS = {
     "gram": dict(source=SRC + "gram.cu", replaces=PALLAS + ":52"),
     "gram_bwd": dict(source=SRC + "gram_bwd.cu", replaces=PALLAS + ":107"),
     "tv": dict(source=SRC + "tv.cu", replaces=PALLAS + ":171"),
+    "conv_relu": dict(source=SRC + "conv_relu.cu", replaces=PALLAS + ":267"),
 }
+NOT_ON_PATH = {"conv_relu": "no path runs it: VGG19's convs stay on cuDNN, "
+                            "as they stay on XLA in the JAX package"}
 # (n = h*w, c) of the five style taps at 512 px (level 1) and 256 px
 # (level 0): the Gram shapes of one loss evaluation
 GRAM_SHAPES = [(512 * 512, 64), (256 * 256, 128), (128 * 128, 256),
@@ -62,11 +85,32 @@ GRAM_SHAPES = [(512 * 512, 64), (256 * 256, 128), (128 * 128, 256),
                (32 * 32, 512), (16 * 16, 512)]
 TV_SHAPES = [(512, 512), (256, 256)]     # one loss evaluation
 TV_EXTRA = [(511, 769)]                  # an odd shape
+LANES = 8                                # the widest batched rows
+QUEUE_REPEATS = 3                        # runs of each queue (a spread)
+# (lanes, level inputs (h, w)) of the batched rows: 8 lanes of the 512 px
+# level, then the queue phase's own batches at both of their levels: 6 and
+# 4 lanes of the 512x512 bucket (Adam, L-BFGS) and 2 lanes of the 384x512
+# bucket, whose levels are level_shape(384, 512, l, 256)
+BATCHED = [(LANES, [(512, 512)]),
+           (6, [(512, 512), (256, 256)]),
+           (4, [(512, 512), (256, 256)]),
+           (2, [(512, 682), (256, 341)])]
+# (h = w, cin, cout) of the truncated VGG19's 13 convs (conv1_1 .. conv5_1)
+# at each level input, 512 px and 256 px
+VGG_CONVS = [(1, 3, 64), (1, 64, 64), (2, 64, 128), (2, 128, 128),
+             (4, 128, 256), (4, 256, 256), (4, 256, 256), (4, 256, 256),
+             (8, 256, 512), (8, 512, 512), (8, 512, 512), (8, 512, 512),
+             (16, 512, 512)]
+CONV_SHAPES = [(size // div, cin, cout) for size in (512, 256)
+               for div, cin, cout in VGG_CONVS]
 TOL = {  # max |kernel - plain| / max |plain|
     ("gram", "float32"): 1e-4, ("gram", "bfloat16"): 1e-4,
     ("gram_bwd", "float32"): 1e-4,
     ("gram_bwd", "bfloat16"): 1e-2,  # output rounded to bf16 (2^-8)
     ("tv", "float32"): 1e-4,
+    # 9*cin products per output summed in another order than cuDNN's
+    # (TF32 off on both sides)
+    ("conv_relu", "float32"): 1e-4, ("conv_relu_grad", "float32"): 1e-4,
 }
 
 RECORD = {}
@@ -241,8 +285,8 @@ def phase_kernels():
             emit(dict(phase="kernels", **rows[-1]))
     for h, w in TV_SHAPES + TV_EXTRA:
         y = torch.randn((1, h, w, 3), generator=gen, device=dev) * 100.0
-        out = torch.stack(ktv.tv_sums_cuda(y))
-        ref = torch.stack(ktv.tv_sums_plain(y))
+        out = ktv.tv_sums_cuda(y)
+        ref = ktv.tv_sums_plain(y)
         torch.cuda.synchronize()
         err, rel, tol = _check("tv", "float32", out, ref, (h, w))
         b_ms, b_by = bound(y.numel() * 4 + 8, 6 * y.numel(), "float32")
@@ -252,25 +296,189 @@ def phase_kernels():
             **timings(lambda: ktv.tv_sums_cuda(y),
                       lambda: ktv.tv_sums_plain(y), None)))
         emit(dict(phase="kernels", **rows[-1]))
+    batched_rows(gen, rows)
+    conv_rows(gen, rows)
+    conv_grad_check(gen)
     RECORD["kernels"] = rows
     return rows
 
 
-def kernel_summary(rows, launches):
-    """One entry per kernel: the main path's float32 shapes of one loss
-    evaluation, times summed over them (kernel, plain, library, bound)."""
+def one_launch(name, fn):
+    """fn() must launch kernel `name` exactly once, whatever the lanes."""
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES
+
+    before = LAUNCHES[name]
+    out = fn()
+    if LAUNCHES[name] - before != 1:
+        raise AssertionError(f"{name}: {LAUNCHES[name] - before} launches "
+                             "for one batched call")
+    return out
+
+
+def tap_grams(h, w):
+    """(n, c) of the five style taps of an h x w level input (VGG19 pools
+    2x2, rounding down, between taps)."""
+    return [((h >> i) * (w >> i), c)
+            for i, c in enumerate((64, 128, 256, 512, 512))]
+
+
+def batched_rows(gen, rows):
+    """The Gram forward/backward and TV at each BATCHED lane count and
+    level, float32, one launch per call, against the batched plain
+    versions; library: torch.bmm."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import gram as kgram
+    from artstyletransfer_tpu_torch.kernels import tv as ktv
+
+    dev = torch.device("cuda")
+    for lanes, levels in BATCHED:
+        for n, c in [nc for h, w in levels for nc in tap_grams(h, w)]:
+            f = torch.relu(torch.randn((lanes, n, c), generator=gen,
+                                       device=dev))
+            s = 1.0 / (n * c)
+            out = one_launch("gram", lambda: kgram.gram_cuda(f, s))
+            ref = kgram.gram_plain(f, s)
+            torch.cuda.synchronize()
+            err, rel, tol = _check("gram", "float32", out, ref, (lanes, n, c))
+            b_ms, b_by = bound(lanes * (n * c + c * c) * 4,
+                               lanes * n * c * (c + 1), "float32")
+            rows.append(dict(
+                kernel="gram", dtype="float32", lanes=lanes, n=n, c=c,
+                max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
+                bound_by=b_by,
+                **timings(lambda: kgram.gram_cuda(f, s),
+                          lambda: kgram.gram_plain(f, s),
+                          lambda: torch.bmm(f.transpose(1, 2), f))))
+            emit(dict(phase="kernels", **rows[-1]))
+
+            g = torch.randn((lanes, c, c), generator=gen, device=dev) * s
+            g = (g + g.transpose(1, 2)).contiguous()
+            out = one_launch("gram_bwd", lambda: kgram.gram_bwd_cuda(f, g))
+            ref = kgram.gram_bwd_plain(f, g)
+            torch.cuda.synchronize()
+            err, rel, tol = _check("gram_bwd", "float32", out, ref,
+                                   (lanes, n, c))
+            b_ms, b_by = bound(lanes * (2 * n * c + c * c) * 4,
+                               lanes * 2 * n * c * c, "float32")
+            rows.append(dict(
+                kernel="gram_bwd", dtype="float32", lanes=lanes, n=n, c=c,
+                max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
+                bound_by=b_by,
+                **timings(lambda: kgram.gram_bwd_cuda(f, g),
+                          lambda: kgram.gram_bwd_plain(f, g),
+                          lambda: torch.bmm(f, g))))
+            emit(dict(phase="kernels", **rows[-1]))
+        for h, w in levels:
+            y = torch.randn((lanes, h, w, 3), generator=gen,
+                            device=dev) * 100.0
+            out = one_launch("tv", lambda: ktv.tv_sums_cuda(y))
+            ref = ktv.tv_sums_plain(y)
+            torch.cuda.synchronize()
+            err, rel, tol = _check("tv", "float32", out, ref, (lanes, h, w))
+            b_ms, b_by = bound(y.numel() * 4 + lanes * 8, 6 * y.numel(),
+                               "float32")
+            rows.append(dict(
+                kernel="tv", dtype="float32", lanes=lanes, h=h, w=w,
+                max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
+                bound_by=b_by,
+                **timings(lambda: ktv.tv_sums_cuda(y),
+                          lambda: ktv.tv_sums_plain(y), None)))
+            emit(dict(phase="kernels", **rows[-1]))
+
+
+def conv_inputs(gen, size, cin, cout):
+    """Post-ReLU-like activations, He-scaled HWIO weights, small biases."""
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.relu(torch.randn((1, size, size, cin), generator=gen,
+                               device=dev))
+    w = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (
+        2.0 / (9 * cin)) ** 0.5
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    return x, w, b
+
+
+def conv_rows(gen, rows):
+    """The fused conv kernel at every conv of the truncated VGG19 at both
+    level inputs, against conv_relu_plain; library: cuDNN's F.conv2d on
+    channels_last tensors (bias in the call), then ReLU. TF32 is off."""
+    import torch
+    import torch.nn.functional as F
+
+    from artstyletransfer_tpu_torch.kernels import conv_relu as kconv
+
+    for size, cin, cout in CONV_SHAPES:
+        x, w, b = conv_inputs(gen, size, cin, cout)
+        out = kconv.conv_relu_cuda(x, w, b)
+        ref = kconv.conv_relu_plain(x, w, b)
+        torch.cuda.synchronize()
+        err, rel, tol = _check("conv_relu", "float32", out, ref,
+                               (size, cin, cout))
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        n_px = size * size
+        b_ms, b_by = bound((n_px * (cin + cout) + 9 * cin * cout + cout) * 4,
+                           2 * n_px * 9 * cin * cout, "float32")
+        rows.append(dict(
+            kernel="conv_relu", dtype="float32", h=size, w=size, cin=cin,
+            cout=cout, max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
+            bound_by=b_by,
+            **timings(lambda: kconv.conv_relu_cuda(x, w, b),
+                      lambda: kconv.conv_relu_plain(x, w, b),
+                      lambda: torch.relu_(F.conv2d(x_cl, w_cl, b,
+                                                   padding=1)))))
+        emit(dict(phase="kernels", **rows[-1]))
+
+
+def conv_grad_check(gen):
+    """conv3x3_relu's autograd Function on the card (kernel forward,
+    rematerialised plain backward) against plain autograd."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import conv_relu as kconv
+    from artstyletransfer_tpu_torch.ops.conv_relu import conv3x3_relu
+
+    args = conv_inputs(gen, 64, 64, 128)
+    r = torch.randn((1, 64, 64, 128), generator=gen, device="cuda")
+    grads = []
+    for fn in (conv3x3_relu, kconv.conv_relu_plain):
+        ts = [a.clone().requires_grad_(True) for a in args]
+        (fn(*ts) * r).sum().backward()
+        grads.append([t.grad for t in ts])
+    torch.cuda.synchronize()
+    errs = [_check("conv_relu_grad", "float32", a, b, "64x64, 64->128")[1]
+            for a, b in zip(*grads)]
+    rec = dict(phase="kernels", kernel="conv_relu_grad",
+               rel_err_x_w_b=errs, tol=TOL[("conv_relu_grad", "float32")])
+    emit(rec)
+    RECORD["conv_relu_grad"] = rec
+
+
+def kernel_summary(rows, paths):
+    """One entry per kernel: the single-job main path's float32 shapes of
+    one loss evaluation (for conv_relu: the 26 VGG19 convs of one
+    evaluation's forward), times summed over them (kernel, plain, library,
+    bound); launches summed over the driven paths, and per path."""
     main_tv = {(h, w) for h, w in TV_SHAPES}
     out = []
     for name, meta in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name
-               and r["dtype"] == "float32"
+               and r["dtype"] == "float32" and "lanes" not in r
                and (name != "tv" or (r["h"], r["w"]) in main_tv)]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel if r["bound_by"] == "operations")
         lib = [r["library_ms"] for r in sel]
+        extra = ({"launches_note": NOT_ON_PATH[name]}
+                 if name in NOT_ON_PATH else {})
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
+            replaces=meta["replaces"],
+            launches=sum(counts[name] for counts in paths.values()),
+            launches_by_path={p: counts[name] for p, counts in paths.items()},
+            **extra,
             max_abs_err=max(r["max_abs_err"] for r in sel),
             ms=sum(r["ms"] for r in sel),
             call_ms=sum(r["call_ms"] for r in sel),
@@ -415,10 +623,198 @@ def phase_main():
         RECORD.setdefault("main", []).append(rec)
         if not (np.isfinite(last) and last < first):
             raise AssertionError(f"{name}: loss did not decrease: {rec}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
+    check_launches("main", launches)
     return launches
+
+
+def check_launches(path, launches):
+    """Every kernel of the path launched; the one no path runs did not."""
+    missing = [k for k, v in launches.items()
+               if (v > 0) == (k in NOT_ON_PATH)]
+    if missing:
+        raise AssertionError(f"{path}: launches {launches} (unexpected for "
+                             f"{missing})")
+
+
+def queue_jobs(size: int = 512):
+    """8 Adam jobs (6 at size x size, 2 at 3/4 size x size contents; styles
+    of four sizes: 512x512, 400x600, 300x300 and 640x480 at size 512) and 4
+    L-BFGS jobs (size x size), all seeded synthetic images."""
+    sizes = [(size, size), (size * 25 // 32, size * 75 // 64),
+             (size * 75 // 128, size * 75 // 128),
+             (size * 5 // 4, size * 15 // 16)]
+    adam = []
+    for i in range(8):
+        content, _ = synthetic_pair(seed=i, size=size)
+        if i >= 6:
+            content = content[size // 8:size - size // 8]
+        sh, sw = sizes[i % 4]
+        _, style = synthetic_pair(seed=100 + i, size=max(sh, sw))
+        adam.append((f"adam{i}", content, style[:sh, :sw]))
+    lbfgs = [(f"lbfgs{i}",) + synthetic_pair(seed=20 + i, size=size)
+             for i in range(4)]
+    return adam, lbfgs
+
+
+def run_queue(jobs, cfg, params):
+    """run_job_queue on the card QUEUE_REPEATS times, with the counters
+    zeroed just before the first run and read just after the last; returns
+    (results, progress events of each run, launches, wall s of each run,
+    peak GB)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.parallel import run_job_queue
+
+    runs, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # ---- the queue path starts here ----
+    for _ in range(QUEUE_REPEATS):
+        events = []
+
+        def progress(tid, pct, img, loss, events=events):
+            events.append((time.time(), tid, pct, loss))
+
+        t0 = time.time()
+        results, failures = run_job_queue(jobs, cfg, params=params,
+                                          progress=progress,
+                                          canonicalize_styles=True,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        runs.append(events)
+        if failures:
+            raise next(iter(failures.values()))
+    launches = dict(LAUNCHES)  # ---- and ends here ----
+    return (results, runs, launches, walls,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def chunk_rates(jobs, events, cfg):
+    """Steady job-steps/s of each bucket: its lanes times the steps between
+    its first and last progress chunk, over the time between them."""
+    from artstyletransfer_tpu_torch.parallel.batch import bucket_jobs
+
+    rates = []
+    for bucket in bucket_jobs(jobs).values():
+        tids = {j[0] for j in bucket}
+        firsts = {}
+        for t, tid, pct, _loss in events:
+            if tid in tids:
+                firsts[pct] = min(t, firsts.get(pct, t))
+        (p_a, t_a), (p_b, t_b) = min(firsts.items()), max(firsts.items())
+        rates.append(dict(lanes=len(bucket), content=bucket[0][1].shape[:2],
+                          job_steps_per_s=len(bucket) * (p_b - p_a) / 100.0
+                          * cfg.iters_num / (t_b - t_a)))
+    return rates
+
+
+def single_run(content, style, cfg, params):
+    """One TransferJob of a queue job, QUEUE_REPEATS times: (steps/s
+    between its first and last chunk in each run, the first run's final
+    loss)."""
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+
+    job = TransferJob(content, style, cfg, params=params, device="cuda")
+    rates, losses = [], []
+    for _ in range(QUEUE_REPEATS):
+        stamps = [(time.time(), done, loss) for done, _img, loss in job.run()]
+        (t_a, d_a, _), (t_b, d_b, loss) = stamps[0], stamps[-1]
+        rates.append((d_b - d_a) / (t_b - t_a))
+        losses.append(loss)
+    return rates, losses[0]
+
+
+def launches_per_eval(content, style, cfg, params, lanes):
+    """Kernel launches of one batched loss/grad evaluation of `lanes`
+    copies of a job."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+
+    job = BatchedTransferJob([content] * lanes, [style] * lanes, cfg,
+                             params=params, device="cuda")
+    reset_launches()
+    job._loss_grad(job._x0, job.targets)
+    torch.cuda.synchronize()
+    return dict(LAUNCHES)
+
+
+def phase_queue():
+    """The batched job queue at full width (see the module docstring)."""
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.pyramid import level_shape
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+    from artstyletransfer_tpu_torch.parallel.batch import (bucket_jobs,
+                                                           canonicalize_style)
+
+    params = init_vgg19_params(seed=0)
+    adam_jobs, lbfgs_jobs = queue_jobs()
+    adam = dict(levels_num=2, base_diameter=256, optimizer="adam",
+                iters_num=20, stream_every=5)
+    runs = [("adam", adam_jobs, Config(**adam)),
+            ("adam_highest", adam_jobs,
+             Config(conv_precision="highest", **adam)),
+            ("lbfgs_unit", lbfgs_jobs,
+             Config(levels_num=2, base_diameter=256, optimizer="lbfgs",
+                    lbfgs_t_init="unit", iters_num=10, stream_every=2))]
+    paths = {}
+    for name, jobs, cfg in runs:
+        results, runs_events, launches, walls, peak_gb = run_queue(
+            jobs, cfg, params)
+        events = runs_events[0]
+        paths[f"queue_{name}"] = launches
+        check_launches(f"queue {name}", launches)
+        canon = [(tid, c, canonicalize_style(s, cfg)) for tid, c, s in jobs]
+        first = {}
+        for bucket in bucket_jobs(canon).values():
+            batch = BatchedTransferJob([j[1] for j in bucket],
+                                       [j[2] for j in bucket], cfg,
+                                       params=params, device="cuda")
+            first.update(zip([j[0] for j in bucket], batch.initial_losses()))
+        lanes = {}
+        for tid, c, _s in jobs:
+            reported = [loss for _t, t2, _p, loss in events if t2 == tid]
+            lanes[tid] = dict(first_loss=float(first[tid]),
+                              first_chunk_loss=reported[0],
+                              last_loss=reported[-1])
+            img = results[tid]
+            top = level_shape(*c.shape[:2], cfg.levels_num - 1,
+                              cfg.base_diameter) + (3,)
+            if img.shape != top or not np.isfinite(img).all():
+                raise AssertionError(f"{name} {tid}: bad image {img.shape}")
+            if not (np.isfinite(reported).all()
+                    and reported[-1] < reported[0] < first[tid]):
+                raise AssertionError(f"{name} {tid}: losses {lanes[tid]} "
+                                     "are not finite and falling")
+        tid0, c0, s0 = canon[0]
+        single_rates, single_loss = single_run(c0, s0, cfg, params)
+        rel = abs(lanes[tid0]["last_loss"] / single_loss - 1.0)
+        per_eval = {n: launches_per_eval(c0, s0, cfg, params, n)
+                    for n in (1, LANES)}
+        steps = len(jobs) * cfg.iters_num
+        rec = dict(phase="queue", optimizer=name, jobs=len(jobs),
+                   steps=cfg.iters_num, repeats=QUEUE_REPEATS, wall_s=walls,
+                   job_steps_per_s=[steps / w for w in walls],
+                   chunk_rates=[chunk_rates(canon, ev, cfg)
+                                for ev in runs_events],
+                   single_job_steps_per_s=single_rates,
+                   lane0_vs_single_rel_err=rel, lanes=lanes,
+                   peak_mem_gb=peak_gb, launches=launches,
+                   launches_per_eval={str(n): v for n, v in per_eval.items()})
+        emit(rec)
+        RECORD.setdefault("queue", []).append(rec)
+        if per_eval[1] != per_eval[LANES]:
+            raise AssertionError(f"{name}: launches per evaluation depend on "
+                                 f"the lanes: {per_eval}")
+        if name == "adam_highest" and rel > 1e-3:
+            raise AssertionError(f"adam lane 0 ends {rel:.2e} from the "
+                                 "single job at full float32 (rtol 1e-3)")
+    return paths
 
 
 def main() -> int:
@@ -433,8 +829,9 @@ def main() -> int:
     smi = phase_build()
     rows = phase_kernels()
     phase_golden()
-    launches = phase_main()
-    summary = kernel_summary(rows, launches)
+    paths = {"main": phase_main()}
+    paths.update(phase_queue())
+    summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -2,16 +2,19 @@
 """Where the time of one optimization step goes in the PyTorch/CUDA port.
 
     python3 scripts/profile_torch_step.py [--steps 10] [--size 512]
+        [--lanes 1] [--t-init lr] [--precision default]
 
 Builds the port's smoke job on the card (2 pyramid levels, full-width
-VGG19 with seeded weights, seeded synthetic size x size images), runs a
-few warm-up steps of Adam and of L-BFGS, then traces `--steps` steps of
-each with torch.profiler (CUDA activity) and prints one JSON line
-per optimizer:
+VGG19 with seeded weights, seeded synthetic size x size images) — with
+--lanes N > 1, N copies of it as one BatchedTransferJob (the batched
+queue's unit of work) — runs a few warm-up steps of Adam and of L-BFGS
+(--t-init: the first line-search trial, 'lr' or 'unit'; the batched queue
+batches 'unit'), then traces `--steps` steps of each with torch.profiler
+(CUDA activity) and prints one JSON line per optimizer:
 
-- host wall ms per step over `--steps` untraced steps, and device-busy
-  ms per step over as many traced ones (sum of CUDA kernel time; one
-  stream, so kernels do not overlap);
+- host wall ms per step over `--steps` untraced steps (and job-steps/s:
+  lanes over it), and device-busy ms per step over as many traced ones
+  (sum of CUDA kernel time; one stream, so kernels do not overlap);
 - the device's idle share in the traced window, 1 - busy / span, where
   span runs from the first kernel's start to the last kernel's end on
   the device's timeline (the profiler's host overhead may lengthen it);
@@ -38,7 +41,7 @@ sys.path.insert(0, ROOT)
 # substrings of the port's kernel symbols (kernels/csrc/*.cu)
 OWN = {"gram_partial_kernel": "gram", "gram_reduce_kernel": "gram",
        "gram_bwd_kernel": "gram_bwd", "tv_partial_kernel": "tv",
-       "tv_final_kernel": "tv"}
+       "tv_final_kernel": "tv", "conv3x3_relu_kernel": "conv_relu"}
 LIBRARY = ("conv", "cudnn", "xmma", "gemm", "sm90", "sm80", "cutlass",
            "implicit", "winograd", "fft")
 
@@ -80,7 +83,7 @@ def profile(job, steps: int, warmup: int):
             next(it)
         torch.cuda.synchronize()
     groups = {"cudnn_cublas": 0.0, "gram": 0.0, "gram_bwd": 0.0, "tv": 0.0,
-              "other": 0.0}
+              "conv_relu": 0.0, "other": 0.0}
     kernels = []
     for evt in prof.key_averages():
         us = _device_us(evt)
@@ -116,12 +119,17 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--lanes", type=int, default=1)
+    ap.add_argument("--t-init", choices=["lr", "unit"], default="lr")
+    ap.add_argument("--precision", choices=["default", "high", "highest"],
+                    default="default")
     args = ap.parse_args()
 
     from chip_smoke import synthetic_pair
     from artstyletransfer_tpu_torch.config import Config
     from artstyletransfer_tpu_torch.engine.transfer import TransferJob
     from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -130,11 +138,21 @@ def main() -> int:
     params = init_vgg19_params(seed=0)
     for optimizer in ("adam", "lbfgs"):
         cfg = Config(levels_num=2, base_diameter=args.size // 2,
-                     optimizer=optimizer)
-        job = TransferJob(content, style, cfg, params=params, device="cuda")
+                     optimizer=optimizer, lbfgs_t_init=args.t_init,
+                     conv_precision=args.precision)
+        if args.lanes > 1:
+            job = BatchedTransferJob([content] * args.lanes,
+                                     [style] * args.lanes, cfg, params=params,
+                                     device="cuda")
+        else:
+            job = TransferJob(content, style, cfg, params=params,
+                              device="cuda")
+        prof = profile(job, args.steps, args.warmup)
         rec = dict(script="profile_torch_step", gpu=smi, size=args.size,
-                   optimizer=optimizer, steps=args.steps,
-                   **profile(job, args.steps, args.warmup))
+                   optimizer=optimizer, lanes=args.lanes, t_init=args.t_init,
+                   precision=args.precision, steps=args.steps,
+                   job_steps_per_s=args.lanes * 1e3 / prof["wall_ms_per_step"],
+                   **prof)
         print(json.dumps(rec), flush=True)
     return 0
 

@@ -20,6 +20,7 @@ from artstyletransfer_tpu.ops.pallas_kernels import (
 from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
 from artstyletransfer_tpu_torch.kernels import gram as kgram
 from artstyletransfer_tpu_torch.kernels import tv as ktv
+from artstyletransfer_tpu_torch.ops.conv_relu import conv3x3_relu
 from artstyletransfer_tpu_torch.ops.gram import gram_matrix
 from artstyletransfer_tpu_torch.ops.tv import total_variation
 
@@ -119,7 +120,8 @@ def test_cpu_runs_are_not_counted_as_launches(rng):
     x = torch.from_numpy(rng.standard_normal((1, 4, 4, 64)).astype(np.float32))
     gram_matrix(x)
     total_variation(x[..., :3].contiguous())
-    assert LAUNCHES == {"gram": 0, "gram_bwd": 0, "tv": 0}
+    conv3x3_relu(x, torch.zeros((3, 3, 64, 8)), torch.zeros((8,)))
+    assert LAUNCHES == {"gram": 0, "gram_bwd": 0, "tv": 0, "conv_relu": 0}
 
 
 def test_wrappers_refuse_other_devices():

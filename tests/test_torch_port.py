@@ -43,6 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     kernels' notes cite, are not imports."""
     files = _port_sources()
     assert len(files) > 15
+    for module in ("parallel/batch.py", "frontends/queue_cli.py",
+                   "kernels/conv_relu.py", "ops/conv_relu.py"):
+        assert os.path.join(PORT, module) in files, module
     offenders = []
     for path in files:
         with open(path) as fh:
