@@ -28,13 +28,15 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): under CUDA_HOME
+    (default /usr/local/cuda), else on PATH."""
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"),
-                 shutil.which("nvcc")):
+                              "bin", name),
+                 shutil.which(name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on PATH); "
                        "the port's CUDA kernels are built at first use")
 
 
@@ -58,7 +60,7 @@ def build_all(force: bool = False) -> Dict[str, float]:
     todo = [n for n in SOURCES if force or not _fresh(n)]
     if not todo:
         return {}
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     procs = {}
     t0 = time.time()
     for name in todo:

@@ -11,9 +11,12 @@ results carry the same leading axis:
   the larger of F's bytes over the memory rate and n*c*(c+1) FLOPs (G is
   symmetric: only its upper triangle is computed) over the f32 rate;
   bytes bind at c = 64, FLOPs from c = 128 up.
-- gram_bwd(f, g) = F @ g with g (c, c) float32, in F's dtype. Replaces
-  ``_gram_bwd_kernel`` (pallas_kernels.py:107). Bound: the larger of the
-  bytes of F read and dF written and 2*n*c^2 FLOPs over the f32 rate.
+- gram_bwd(f, g) = F @ g with g (c, c) float32, in F's dtype, c a
+  multiple of 8. Replaces ``_gram_bwd_kernel`` (pallas_kernels.py:107).
+  It runs on the tensor cores in 3xTF32 (see csrc/gram_bwd.cu). Bound: the
+  larger of the bytes of F read and dF written and 3 * 2*n*c^2 TF32
+  operations over the tensor-core rate (2*n*c^2 FLOPs over the f32 rate
+  on CUDA cores).
 
 The forward is split over rows (see csrc/gram.cu); the wrapper picks the
 split from the card's SM count and the number of lanes so that about four
@@ -132,11 +135,17 @@ def gram_bwd_cuda(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     with g (c, c), or F (B, n, c) with g (B, c, c), one launch."""
     _check_features(f, "gram_bwd")
     batch, n, c = _lanes(f).shape
+    if c % 8:
+        raise ValueError(f"gram_bwd: c = {c} is not a multiple of 8 (the "
+                         "kernel copies 16-byte row pieces)")
     want = f.shape[:-2] + (c, c)
     if (not g.is_cuda or g.device != f.device or g.dtype != torch.float32
             or tuple(g.shape) != want or not g.is_contiguous()):
         raise ValueError(f"gram_bwd: g must be a contiguous {want} "
                          f"float32 tensor on {f.device}")
+    if f.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("gram_bwd: F and g must start on 16-byte "
+                         "boundaries")
     fn = _gram_bwd_lib()
     with torch.cuda.device(f.device):
         out = torch.empty(f.shape, dtype=f.dtype, device=f.device)

@@ -7,7 +7,10 @@ Run from the root of a checkout, with no setup: it builds the port's CUDA
 kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
 
 1. build    — compiles every kernel source (in parallel) and reports the
-              card's name and power limit (nvidia-smi);
+              card's name and power limit (nvidia-smi); the Gram
+              backward's library must hold tensor-core instructions
+              (HMMA in `cuobjdump -sass`), no atomics, and no spills in
+              its ptxas report;
 2. kernels  — calls each kernel on the card at every shape the main path
               gives it (Gram forward/backward in float32 and bfloat16, TV
               at 512², 256² and 511x769), the batched Gram, Gram-backward
@@ -18,7 +21,9 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               check through its autograd Function); holds each against its
               plain PyTorch version with a stated tolerance, and times it
               (device time from torch.profiler) beside its bound, the plain
-              version and one library call;
+              version and one library call (the Gram backward also
+              beside its bound at the TF32 tensor-core rate, and two
+              calls on the same inputs must give the same bits);
 3. golden   — reruns two of the JAX package's committed one-step goldens
               (tests/goldens) on the card at full float32 precision;
 4. main     — drives the main path, Executor -> neural_style_transfer ->
@@ -66,6 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+TF32_TC_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 SRC = "artstyletransfer_tpu_torch/kernels/csrc/"
 PALLAS = "artstyletransfer_tpu/ops/pallas_kernels.py"
@@ -147,10 +153,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled_device_ms(fn, reps: int) -> float:
-    """Mean device time per call of fn: the summed duration of every CUDA
-    kernel it launched (torch.profiler / CUPTI), gaps excluded; 0 when the
-    profiler recorded no kernel."""
+def _profiled_device_ms(fn, reps: int):
+    """(mean device time per call of fn, kernels recorded): the summed
+    duration of every CUDA kernel it launched (torch.profiler / CUPTI),
+    gaps excluded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,29 +164,31 @@ def _profiled_device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, kernels = 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             total_us += float(getattr(evt, "self_device_time_total",
                                       getattr(evt, "self_cuda_time_total", 0)))
-    return total_us / 1e3 / reps
+            kernels += evt.count
+    return total_us / 1e3 / reps, kernels
 
 
 def device_ms(fn, reps: int = 20, attempts: int = 5) -> float:
-    """The profiler's device time per call of fn. A profiler session that
-    records no kernel at all is retried; after `attempts` empty sessions
-    this raises, so that every `ms`, `plain_ms` and `library_ms` is
-    measured the same way."""
+    """The profiler's device time per call of fn. Every call launches at
+    least one kernel, so a profiler session that records fewer kernels
+    than calls (it dropped some, and reads low) is retried; after
+    `attempts` such sessions this raises, so that every `ms`, `plain_ms`
+    and `library_ms` is measured the same way."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        ms = _profiled_device_ms(fn, reps)
-        if ms > 0:
+        ms, kernels = _profiled_device_ms(fn, reps)
+        if kernels >= reps and ms > 0:
             return ms
-    raise RuntimeError(f"torch.profiler recorded no CUDA kernel in "
-                       f"{attempts} sessions")
+    raise RuntimeError(f"torch.profiler recorded fewer than {reps} CUDA "
+                       f"kernels for {reps} calls in {attempts} sessions")
 
 
 def timings(kernel_fn, plain_fn, library_fn):
@@ -193,10 +201,34 @@ def timings(kernel_fn, plain_fn, library_fn):
                 call_ms=cuda_ms(kernel_fn))
 
 
-def bound(bytes_moved: float, ops: float, dtype: str):
+def bound(bytes_moved: float, ops: float, dtype: str, rate=None):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / (rate or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_bwd_bounds(n, c, elem, lanes=1):
+    """The Gram backward's two bounds: 2*n*c^2 FLOPs at the dtype's rate
+    of earlier runs (`bound_ms`: f32 CUDA cores, bf16 tensor cores) and the
+    3xTF32 design's work at the TF32 tensor-core rate (`bound_tc_ms`): 3
+    products for float32 F, 2 for bfloat16 F (exact in TF32, no low
+    part)."""
+    dtype = "float32" if elem == 4 else "bfloat16"
+    bytes_moved = lanes * (2 * n * c * elem + c * c * 4)
+    flops = lanes * 2 * n * c * c
+    b_ms, b_by = bound(bytes_moved, flops, dtype)
+    tc_ms, tc_by = bound(bytes_moved, (3 if elem == 4 else 2) * flops, dtype,
+                         TF32_TC_OPS_PER_S)
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_tc_ms=tc_ms,
+                bound_tc_by=tc_by)
+
+
+def same_bits(name, out, again):
+    """Two calls on the same inputs must give identical outputs."""
+    import torch
+
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
 
 
 def phase_build():
@@ -213,10 +245,32 @@ def phase_build():
     smi = nvidia_smi()
     rec = {"phase": "build", "seconds": round(seconds, 3),
            "per_source_seconds": {k: round(v, 3) for k, v in per_source.items()},
-           "gpu": smi}
+           "gpu": smi, "gram_bwd": gram_bwd_sass(build, ptxas["gram_bwd"])}
     emit(rec)
     RECORD["build"] = dict(rec, ptxas=ptxas)
     return smi
+
+
+def gram_bwd_sass(build, ptxas_lines):
+    """Proof from the built library that the Gram backward runs on the
+    tensor cores: its SASS (cuobjdump -sass) counts HMMA instructions and
+    no atomics, and its ptxas report shows no spills."""
+    import re
+
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                           build.lib_path("gram_bwd")], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    hmma = re.findall(r"\bHMMA[.\w]*", sass)
+    atomics = len(re.findall(r"\b(?:ATOM|ATOMS|ATOMG|RED)\b", sass))
+    spills = [ln for ln in ptxas_lines if "spill" in ln
+              and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                                ln)]
+    rec = dict(hmma=len(hmma), hmma_forms=sorted(set(hmma)),
+               atomics=atomics, spills=spills,
+               ptxas=[ln for ln in ptxas_lines if "registers" in ln])
+    if not hmma or atomics or spills:
+        raise AssertionError(f"gram_bwd SASS/ptxas: {rec}")
+    return rec
 
 
 def _check(kernel, dtype, out, ref, shape):
@@ -271,14 +325,13 @@ def phase_kernels():
             g = (g + g.T).contiguous()
             out = kgram.gram_bwd_cuda(f, g)
             ref = kgram.gram_bwd_plain(f, g)
+            same_bits("gram_bwd", out, kgram.gram_bwd_cuda(f, g))
             torch.cuda.synchronize()
             err, rel, tol = _check("gram_bwd", dtype, out, ref, (n, c))
             g_lib = g.to(tdt)
-            b_ms, b_by = bound(2 * n * c * elem + c * c * 4, 2 * n * c * c,
-                               dtype)
             rows.append(dict(
                 kernel="gram_bwd", dtype=dtype, n=n, c=c, max_abs_err=err,
-                rel_err=rel, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                rel_err=rel, tol=tol, **gram_bwd_bounds(n, c, elem),
                 **timings(lambda: kgram.gram_bwd_cuda(f, g),
                           lambda: kgram.gram_bwd_plain(f, g),
                           lambda: torch.matmul(f, g_lib))))
@@ -356,15 +409,14 @@ def batched_rows(gen, rows):
             g = (g + g.transpose(1, 2)).contiguous()
             out = one_launch("gram_bwd", lambda: kgram.gram_bwd_cuda(f, g))
             ref = kgram.gram_bwd_plain(f, g)
+            same_bits("gram_bwd", out, kgram.gram_bwd_cuda(f, g))
             torch.cuda.synchronize()
             err, rel, tol = _check("gram_bwd", "float32", out, ref,
                                    (lanes, n, c))
-            b_ms, b_by = bound(lanes * (2 * n * c + c * c) * 4,
-                               lanes * 2 * n * c * c, "float32")
             rows.append(dict(
                 kernel="gram_bwd", dtype="float32", lanes=lanes, n=n, c=c,
-                max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
-                bound_by=b_by,
+                max_abs_err=err, rel_err=rel, tol=tol,
+                **gram_bwd_bounds(n, c, 4, lanes),
                 **timings(lambda: kgram.gram_bwd_cuda(f, g),
                           lambda: kgram.gram_bwd_plain(f, g),
                           lambda: torch.bmm(f, g))))
@@ -457,11 +509,23 @@ def conv_grad_check(gen):
     RECORD["conv_relu_grad"] = rec
 
 
+def _sums(sel):
+    """Summed times and bounds of a set of kernel rows."""
+    out = {k: sum(r[k] for r in sel)
+           for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")
+           if sel and k in sel[0]}
+    lib = [r["library_ms"] for r in sel]
+    out["library_ms"] = None if None in lib else sum(lib)
+    return out
+
+
 def kernel_summary(rows, paths):
     """One entry per kernel: the single-job main path's float32 shapes of
     one loss evaluation (for conv_relu: the 26 VGG19 convs of one
     evaluation's forward), times summed over them (kernel, plain, library,
-    bound); launches summed over the driven paths, and per path."""
+    bound; the Gram backward also its tensor-core bound); launches summed
+    over the driven paths, and per path. The Gram kernels and TV also
+    carry `lanes8`: the same sums over the 8-lane batched rows."""
     main_tv = {(h, w) for h, w in TV_SHAPES}
     out = []
     for name, meta in KERNELS.items():
@@ -470,9 +534,15 @@ def kernel_summary(rows, paths):
                and (name != "tv" or (r["h"], r["w"]) in main_tv)]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel if r["bound_by"] == "operations")
-        lib = [r["library_ms"] for r in sel]
+        sums = _sums(sel)
         extra = ({"launches_note": NOT_ON_PATH[name]}
                  if name in NOT_ON_PATH else {})
+        if "bound_tc_ms" in sums:
+            extra["bound_tc_ms"] = sums["bound_tc_ms"]
+        lanes8 = [r for r in rows if r["kernel"] == name
+                  and r.get("lanes") == LANES]
+        if lanes8:
+            extra["lanes8"] = _sums(lanes8)
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
@@ -480,12 +550,12 @@ def kernel_summary(rows, paths):
             launches_by_path={p: counts[name] for p, counts in paths.items()},
             **extra,
             max_abs_err=max(r["max_abs_err"] for r in sel),
-            ms=sum(r["ms"] for r in sel),
+            ms=sums["ms"],
             call_ms=sum(r["call_ms"] for r in sel),
-            plain_ms=sum(r["plain_ms"] for r in sel),
-            bound_ms=sum(r["bound_ms"] for r in sel),
+            plain_ms=sums["plain_ms"],
+            bound_ms=sums["bound_ms"],
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None if None in lib else sum(lib)))
+            library_ms=sums["library_ms"]))
     return out
 
 

@@ -38,7 +38,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# substrings of the port's kernel symbols (kernels/csrc/*.cu)
+# substrings of the port's kernel symbols (kernels/csrc/*.cu; the templated
+# tensor-core kernel of gram_bwd.cu keeps the name gram_bwd_kernel)
 OWN = {"gram_partial_kernel": "gram", "gram_reduce_kernel": "gram",
        "gram_bwd_kernel": "gram_bwd", "tv_partial_kernel": "tv",
        "tv_final_kernel": "tv", "conv3x3_relu_kernel": "conv_relu"}

@@ -150,3 +150,42 @@ def test_gram_split_plan_covers_rows():
         assert rows % 32 == 0 and splits >= 1
         assert (splits - 1) * rows < n <= splits * rows
     assert kgram.split_plan(262144, 64, 132)[0] == 512
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: csrc/gram_bwd.cu's split(), as a bit mask."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x: np.ndarray) -> np.ndarray:
+    """The TF32 value the tensor core reads from a float32 operand: its
+    low 13 mantissa bits dropped."""
+    return (x.astype(np.float32).view(np.uint32)
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("n, c", [(4096, 512), (16384, 64)])
+def test_gram_bwd_3xtf32_split_is_float32_accurate(n, c):
+    """The numerical argument of csrc/gram_bwd.cu: with x = hi + lo
+    (hi = tf32(x) rounded to nearest, lo = x - hi as the tensor core reads
+    it), a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32 is within
+    1e-5 of float64 F @ g, while a single TF32 product is not within the
+    kernel's float32 tolerance of 1e-4. Inputs as chip_smoke.py draws
+    them: post-ReLU F, symmetric g."""
+    rng = np.random.default_rng(0)
+    f = np.maximum(rng.standard_normal((n, c)), 0).astype(np.float32)
+    g = (rng.standard_normal((c, c)) / (n * c)).astype(np.float32)
+    g = g + g.T
+    ref = f.astype(np.float64) @ g.astype(np.float64)
+
+    def rel(out):
+        return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+    f_hi, g_hi = _tf32_rna(f), _tf32_rna(g)
+    f_lo, g_lo = _tf32_trunc(f - f_hi), _tf32_trunc(g - g_hi)
+    three = f_lo @ g_hi + f_hi @ g_lo + f_hi @ g_hi  # float32 sums
+    assert three.dtype == np.float32
+    assert rel(three) <= 1e-5
+    assert rel(f_hi @ g_hi) > 1e-4
