@@ -6,11 +6,13 @@ Both take F, the (n, c) row-major feature matrix of one NHWC tap
 lane of a batch; a stack runs as one launch whatever B is, and the
 results carry the same leading axis:
 
-- gram(f, scale) = scale * F^T F, (c, c) float32. Replaces the TPU kernel
-  ``_gram_kernel`` (artstyletransfer_tpu/ops/pallas_kernels.py:52). Bound:
-  the larger of F's bytes over the memory rate and n*c*(c+1) FLOPs (G is
-  symmetric: only its upper triangle is computed) over the f32 rate;
-  bytes bind at c = 64, FLOPs from c = 128 up.
+- gram(f, scale) = scale * F^T F, (c, c) float32, c a multiple of 8.
+  Replaces the TPU kernel ``_gram_kernel``
+  (artstyletransfer_tpu/ops/pallas_kernels.py:52). It runs on the tensor
+  cores in 3xTF32 (see csrc/gram.cu). Bound: the larger of F's bytes over
+  the memory rate and 3 * n*c*(c+1) TF32 operations (G is symmetric: only
+  its upper triangle is computed) over the tensor-core rate (n*c*(c+1)
+  FLOPs over the f32 rate on CUDA cores).
 - gram_bwd(f, g) = F @ g with g (c, c) float32, in F's dtype, c a
   multiple of 8. Replaces ``_gram_bwd_kernel`` (pallas_kernels.py:107).
   It runs on the tensor cores in 3xTF32 (see csrc/gram_bwd.cu). Bound: the
@@ -19,9 +21,8 @@ results carry the same leading axis:
   on CUDA cores).
 
 The forward is split over rows (see csrc/gram.cu); the wrapper picks the
-split from the card's SM count and the number of lanes so that about four
-blocks per SM are in flight, and allocates the (B, splits, c, c)
-workspace with torch.empty.
+split from the card's SM count and the number of lanes (split_plan), and
+allocates the (B, splits, c, c) workspace with torch.empty.
 """
 
 from __future__ import annotations
@@ -33,8 +34,14 @@ import torch
 from . import LAUNCHES
 from . import build
 
-_BLOCKS_PER_SM = 4
-_TILE, _STAGE = 64, 32
+# the forward's 64 x 64 output tiles of G, walked in 32-row chunks
+# (csrc/gram.cu); row splits: at most _BLOCKS_PER_SM blocks per SM in all
+# (three waves of three resident blocks), at least _MIN_ROWS rows and at
+# most _MAX_SPLITS splits (what the second pass sums quickly)
+_TILE, _CHUNK = 64, 32
+_BLOCKS_PER_SM = 9
+_MIN_ROWS = 128
+_MAX_SPLITS = 256
 _MAX_LANES = 65535  # gridDim.z
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -75,14 +82,16 @@ def _lanes(f: torch.Tensor):
 
 
 def split_plan(n: int, c: int, sms: int, batch: int = 1):
-    """(splits, rows_per_split) of the forward's row split: about four
-    blocks per SM of the card over all `batch` lanes, at least 256 rows and
-    whole 32-row stages per split."""
+    """(splits, rows_per_split) of the forward's row split: at most
+    _BLOCKS_PER_SM blocks per SM of the card over all `batch` lanes, at
+    least _MIN_ROWS rows and whole 32-row chunks per split, at most
+    _MAX_SPLITS splits."""
     n_tiles = -(-c // _TILE)
     tiles = n_tiles * (n_tiles + 1) // 2 * batch
-    splits = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), -(-n // 256)))
+    splits = max(1, min(_BLOCKS_PER_SM * sms // tiles, n // _MIN_ROWS,
+                        _MAX_SPLITS))
     rows = -(-n // splits)
-    rows = -(-rows // _STAGE) * _STAGE
+    rows = -(-rows // _CHUNK) * _CHUNK
     return -(-n // rows), rows
 
 
@@ -114,6 +123,11 @@ def gram_cuda(f: torch.Tensor, scale: float) -> torch.Tensor:
     an (n, c) matrix, (B, c, c) for a (B, n, c) stack, one launch."""
     _check_features(f, "gram")
     batch, n, c = _lanes(f).shape
+    if c % 8:
+        raise ValueError(f"gram: c = {c} is not a multiple of 8 (the kernel "
+                         "copies 16-byte row pieces)")
+    if f.data_ptr() % 16:
+        raise ValueError("gram: F must start on a 16-byte boundary")
     sms = torch.cuda.get_device_properties(f.device).multi_processor_count
     splits, rows = split_plan(n, c, sms, batch)
     fn = _gram_lib()

@@ -7,10 +7,10 @@ Run from the root of a checkout, with no setup: it builds the port's CUDA
 kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
 
 1. build    — compiles every kernel source (in parallel) and reports the
-              card's name and power limit (nvidia-smi); the Gram
-              backward's library must hold tensor-core instructions
-              (HMMA in `cuobjdump -sass`), no atomics, and no spills in
-              its ptxas report;
+              card's name and power limit (nvidia-smi); both Gram
+              libraries (forward and backward) must hold tensor-core
+              instructions (HMMA in `cuobjdump -sass`), no atomics, and
+              no spills in their ptxas reports;
 2. kernels  — calls each kernel on the card at every shape the main path
               gives it (Gram forward/backward in float32 and bfloat16, TV
               at 512², 256² and 511x769), the batched Gram, Gram-backward
@@ -21,9 +21,11 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               check through its autograd Function); holds each against its
               plain PyTorch version with a stated tolerance, and times it
               (device time from torch.profiler) beside its bound, the plain
-              version and one library call (the Gram backward also
-              beside its bound at the TF32 tensor-core rate, and two
-              calls on the same inputs must give the same bits);
+              version and one library call (both Gram kernels also
+              beside their bounds at the TF32 tensor-core rate, and two
+              calls on the same inputs must give the same bits; the
+              float32 Gram forward must also be within max(1e-5, twice
+              the plain version's) relative error of the float64 Gram);
 3. golden   — reruns two of the JAX package's committed one-step goldens
               (tests/goldens) on the card at full float32 precision;
 4. main     — drives the main path, Executor -> neural_style_transfer ->
@@ -207,20 +209,50 @@ def bound(bytes_moved: float, ops: float, dtype: str, rate=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gram_bwd_bounds(n, c, elem, lanes=1):
-    """The Gram backward's two bounds: 2*n*c^2 FLOPs at the dtype's rate
-    of earlier runs (`bound_ms`: f32 CUDA cores, bf16 tensor cores) and the
-    3xTF32 design's work at the TF32 tensor-core rate (`bound_tc_ms`): 3
-    products for float32 F, 2 for bfloat16 F (exact in TF32, no low
+def tc_bounds(bytes_moved, ops, elem, bf16_products):
+    """A Gram kernel's two bounds: `ops` at the dtype's rate of earlier runs
+    (`bound_ms`: f32 CUDA cores, bf16 tensor cores) and the 3xTF32
+    design's work at the TF32 tensor-core rate (`bound_tc_ms`): 3 products
+    for float32 F, `bf16_products` for bfloat16 F (exact in TF32, no low
     part)."""
     dtype = "float32" if elem == 4 else "bfloat16"
-    bytes_moved = lanes * (2 * n * c * elem + c * c * 4)
-    flops = lanes * 2 * n * c * c
-    b_ms, b_by = bound(bytes_moved, flops, dtype)
-    tc_ms, tc_by = bound(bytes_moved, (3 if elem == 4 else 2) * flops, dtype,
-                         TF32_TC_OPS_PER_S)
+    b_ms, b_by = bound(bytes_moved, ops, dtype)
+    tc_ms, tc_by = bound(bytes_moved, (3 if elem == 4 else bf16_products)
+                         * ops, dtype, TF32_TC_OPS_PER_S)
     return dict(bound_ms=b_ms, bound_by=b_by, bound_tc_ms=tc_ms,
                 bound_tc_by=tc_by)
+
+
+def gram_bounds(n, c, elem, lanes=1):
+    """The Gram forward: F read once, n*c*(c+1) operations (G is
+    symmetric: its upper triangle); one product for bfloat16 F (both low
+    parts 0)."""
+    return tc_bounds(lanes * (n * c * elem + c * c * 4),
+                     lanes * n * c * (c + 1), elem, 1)
+
+
+def gram_bwd_bounds(n, c, elem, lanes=1):
+    """The Gram backward: F read and dF written, 2*n*c^2 operations; two
+    products for bfloat16 F (its low part 0, g's not)."""
+    return tc_bounds(lanes * (2 * n * c * elem + c * c * 4),
+                     lanes * 2 * n * c * c, elem, 2)
+
+
+def gram_f64_check(f, s, out, ref, shape):
+    """The float32 Gram forward against the float64 Gram: (kernel's, plain
+    version's) relative error; the kernel's must be at most max(1e-5,
+    2 x the plain version's), which alone errs by up to 5e-5 at 262144+
+    rows, too much to judge the kernel by."""
+    f64 = f.double()
+    g64 = (f64.transpose(-1, -2) @ f64) * s
+    scale = float(g64.abs().max())
+    k_rel = float((out.double() - g64).abs().max()) / scale
+    p_rel = float((ref.double() - g64).abs().max()) / scale
+    if not k_rel <= max(1e-5, 2 * p_rel):
+        raise AssertionError(f"gram float32 {shape}: relative error "
+                             f"{k_rel:.3e} against float64 (plain "
+                             f"{p_rel:.3e})")
+    return dict(rel_err_f64=k_rel, plain_rel_err_f64=p_rel)
 
 
 def same_bits(name, out, again):
@@ -245,20 +277,22 @@ def phase_build():
     smi = nvidia_smi()
     rec = {"phase": "build", "seconds": round(seconds, 3),
            "per_source_seconds": {k: round(v, 3) for k, v in per_source.items()},
-           "gpu": smi, "gram_bwd": gram_bwd_sass(build, ptxas["gram_bwd"])}
+           "gpu": smi,
+           "gram_bwd": tc_sass(build, "gram_bwd", ptxas["gram_bwd"]),
+           "gram": tc_sass(build, "gram", ptxas["gram"])}
     emit(rec)
     RECORD["build"] = dict(rec, ptxas=ptxas)
     return smi
 
 
-def gram_bwd_sass(build, ptxas_lines):
-    """Proof from the built library that the Gram backward runs on the
+def tc_sass(build, name, ptxas_lines):
+    """Proof from the built library `name` that its kernels run on the
     tensor cores: its SASS (cuobjdump -sass) counts HMMA instructions and
     no atomics, and its ptxas report shows no spills."""
     import re
 
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
-                           build.lib_path("gram_bwd")], capture_output=True,
+                           build.lib_path(name)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
     hmma = re.findall(r"\bHMMA[.\w]*", sass)
     atomics = len(re.findall(r"\b(?:ATOM|ATOMS|ATOMG|RED)\b", sass))
@@ -269,7 +303,7 @@ def gram_bwd_sass(build, ptxas_lines):
                atomics=atomics, spills=spills,
                ptxas=[ln for ln in ptxas_lines if "registers" in ln])
     if not hmma or atomics or spills:
-        raise AssertionError(f"gram_bwd SASS/ptxas: {rec}")
+        raise AssertionError(f"{name} SASS/ptxas: {rec}")
     return rec
 
 
@@ -306,16 +340,15 @@ def phase_kernels():
             s = 1.0 / (n * c)
             out = kgram.gram_cuda(f, s)
             ref = kgram.gram_plain(f, s)
+            same_bits("gram", out, kgram.gram_cuda(f, s))
             torch.cuda.synchronize()
             err, rel, tol = _check("gram", dtype, out, ref, (n, c))
             elem = f.element_size()
-            # G is symmetric: the function needs its upper triangle only,
-            # c*(c+1)/2 dot products of length n (as gram.cu computes it)
-            b_ms, b_by = bound(n * c * elem + c * c * 4, n * c * (c + 1),
-                               dtype)
+            f64 = (gram_f64_check(f, s, out, ref, (n, c))
+                   if dtype == "float32" else {})
             rows.append(dict(
                 kernel="gram", dtype=dtype, n=n, c=c, max_abs_err=err,
-                rel_err=rel, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                rel_err=rel, tol=tol, **f64, **gram_bounds(n, c, elem),
                 **timings(lambda: kgram.gram_cuda(f, s),
                           lambda: kgram.gram_plain(f, s),
                           lambda: torch.matmul(f.T, f))))
@@ -392,14 +425,14 @@ def batched_rows(gen, rows):
             s = 1.0 / (n * c)
             out = one_launch("gram", lambda: kgram.gram_cuda(f, s))
             ref = kgram.gram_plain(f, s)
+            same_bits("gram", out, kgram.gram_cuda(f, s))
             torch.cuda.synchronize()
             err, rel, tol = _check("gram", "float32", out, ref, (lanes, n, c))
-            b_ms, b_by = bound(lanes * (n * c + c * c) * 4,
-                               lanes * n * c * (c + 1), "float32")
             rows.append(dict(
                 kernel="gram", dtype="float32", lanes=lanes, n=n, c=c,
-                max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
-                bound_by=b_by,
+                max_abs_err=err, rel_err=rel, tol=tol,
+                **gram_f64_check(f, s, out, ref, (lanes, n, c)),
+                **gram_bounds(n, c, 4, lanes),
                 **timings(lambda: kgram.gram_cuda(f, s),
                           lambda: kgram.gram_plain(f, s),
                           lambda: torch.bmm(f.transpose(1, 2), f))))
@@ -523,7 +556,7 @@ def kernel_summary(rows, paths):
     """One entry per kernel: the single-job main path's float32 shapes of
     one loss evaluation (for conv_relu: the 26 VGG19 convs of one
     evaluation's forward), times summed over them (kernel, plain, library,
-    bound; the Gram backward also its tensor-core bound); launches summed
+    bound; both Gram kernels also their tensor-core bound); launches summed
     over the driven paths, and per path. The Gram kernels and TV also
     carry `lanes8`: the same sums over the 8-lane batched rows."""
     main_tv = {(h, w) for h, w in TV_SHAPES}

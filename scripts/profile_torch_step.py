@@ -39,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # substrings of the port's kernel symbols (kernels/csrc/*.cu; the templated
-# tensor-core kernel of gram_bwd.cu keeps the name gram_bwd_kernel)
+# tensor-core kernels of gram.cu and gram_bwd.cu keep these names)
 OWN = {"gram_partial_kernel": "gram", "gram_reduce_kernel": "gram",
        "gram_bwd_kernel": "gram_bwd", "tv_partial_kernel": "tv",
        "tv_final_kernel": "tv", "conv3x3_relu_kernel": "conv_relu"}

@@ -142,14 +142,17 @@ def test_wrappers_refuse_other_devices():
 
 def test_gram_split_plan_covers_rows():
     """The forward's row split on an H100 (132 SMs): every split
-    non-empty, whole 32-row stages, all rows covered, about four blocks
-    per SM at c=64."""
+    non-empty, whole 32-row chunks, all rows covered; at c=64 (one tile)
+    the cap of 256 splits binds at one lane and three waves of three
+    blocks per SM at eight lanes."""
     for n, c in [(262144, 64), (65536, 128), (16384, 256), (4096, 512),
                  (1024, 512), (256, 512), (7, 64), (1000, 3)]:
         splits, rows = kgram.split_plan(n, c, 132)
         assert rows % 32 == 0 and splits >= 1
         assert (splits - 1) * rows < n <= splits * rows
-    assert kgram.split_plan(262144, 64, 132)[0] == 512
+    assert kgram.split_plan(262144, 64, 132)[0] == 256
+    lanes8 = kgram.split_plan(262144, 64, 132, batch=8)[0]
+    assert 8 * lanes8 <= 9 * 132 < 8 * (lanes8 + 2)
 
 
 def _tf32_rna(x: np.ndarray) -> np.ndarray:
@@ -189,3 +192,33 @@ def test_gram_bwd_3xtf32_split_is_float32_accurate(n, c):
     assert three.dtype == np.float32
     assert rel(three) <= 1e-5
     assert rel(f_hi @ g_hi) > 1e-4
+
+
+@pytest.mark.parametrize("n, c", [(4096, 512), (16384, 256), (262144, 64)])
+def test_gram_3xtf32_split_is_float32_accurate(n, c):
+    """The numerical argument of csrc/gram.cu: the 3xTF32 partial sums of
+    the wrapper's row splits (a_lo b_hi + a_hi b_lo + a_hi b_hi in float32,
+    A = F^T, B = F), summed in the splits' order in float32, are within
+    1e-6 of float64 F^T F; at c >= 256 a single TF32 product is not within
+    1e-5, too coarse for G - Gt late in a run. Inputs as chip_smoke.py
+    draws them: post-ReLU F."""
+    rng = np.random.default_rng(0)
+    f = np.maximum(rng.standard_normal((n, c)), 0).astype(np.float32)
+    ref = f.T.astype(np.float64) @ f.astype(np.float64)
+
+    def rel(out):
+        return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+    hi = _tf32_rna(f)
+    lo = _tf32_trunc(f - hi)
+    splits, rows = kgram.split_plan(n, c, 132)
+    three = np.zeros((c, c), np.float32)
+    one = np.zeros((c, c), np.float32)
+    for k in range(splits):
+        h, l = hi[k * rows:(k + 1) * rows], lo[k * rows:(k + 1) * rows]
+        three += l.T @ h + h.T @ l + h.T @ h
+        one += h.T @ h
+    assert three.dtype == np.float32
+    assert rel(three) <= 1e-6
+    if c >= 256:
+        assert rel(one) > 1e-5
