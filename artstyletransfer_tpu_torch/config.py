@@ -10,8 +10,11 @@ what its engine implements and says so where it differs.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
-from typing import Tuple
+import threading
+from typing import Deque, Dict, Tuple
 
 import torch
 
@@ -67,9 +70,9 @@ class Config:
     base_diameter: int = 256            # level-0 shortest side
     compute_dtype: str = "float32"      # 'float32' | 'bfloat16' conv compute
     conv_precision: str = "default"     # 'default' | 'high': TF32 allowed
-                                        # for cuDNN convs and matmuls;
-                                        # 'highest': full float32
-                                        # (see apply_precision)
+                                        # for cuDNN convs; 'highest': full
+                                        # float32 (see precision_gate;
+                                        # matmuls are always float32)
     stream_every: int = 10              # steps per progress yield
     pipeline_streaming: bool = True     # JAX-only lookahead dispatch; the
                                         # port streams sequentially, which
@@ -182,18 +185,77 @@ def production_config(base: Config | None = None) -> Config:
 _TF32 = {"default": True, "high": True, "highest": False}
 
 
-def apply_precision(cfg: Config) -> None:
-    """Set PyTorch's float32 precision switches from cfg.conv_precision.
+class _PrecisionGate:
+    """Who runs device work, and with which cuDNN TF32 setting.
 
-    'highest' turns TF32 off for both cuDNN convolutions and cuBLAS
-    matmuls; 'default' and 'high' allow it. These are process-wide
-    switches: jobs that share a process should share the setting.
+    torch.backends.cudnn.allow_tf32 is one switch for the whole process,
+    and the executor runs jobs in several threads at once. A job holds
+    the gate around each unit of device work (never across a yield), and
+    while it is held the switch has the holder's value: jobs of the same
+    conv_precision hold it together, a job of another one waits until no
+    job holds it. Waiting jobs enter in their order of arrival, so none
+    starves. A thread that holds the gate enters it again at once (its own
+    precision) or raises (another one): it never waits while it holds it,
+    so the executor's thread pool cannot deadlock. The switch gets back its
+    value from before when the last holder leaves.
     """
-    if cfg.conv_precision not in _TF32:
-        raise ValueError(f"unknown conv_precision {cfg.conv_precision!r}")
-    tf32 = _TF32[cfg.conv_precision]
-    torch.backends.cudnn.allow_tf32 = tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._precision = None  # of the holders; None while nobody holds
+        self._depth: Dict[int, int] = {}  # holding thread -> nesting depth
+        self._queue: Deque[object] = collections.deque()  # waiters, FIFO
+        self._saved = False
+
+    @contextlib.contextmanager
+    def hold(self, precision: str):
+        if precision not in _TF32:
+            raise ValueError(f"unknown conv_precision {precision!r}")
+        me = threading.get_ident()
+        with self._cond:
+            if me in self._depth:
+                if precision != self._precision:
+                    raise RuntimeError(
+                        f"a {precision!r} job inside a {self._precision!r} "
+                        "job on one thread")
+            else:
+                ticket = object()
+                self._queue.append(ticket)
+                try:
+                    while not (self._queue[0] is ticket
+                               and self._precision in (None, precision)):
+                        self._cond.wait()
+                finally:
+                    self._queue.remove(ticket)
+                    self._cond.notify_all()  # the next in line may enter too
+                if self._precision is None:
+                    self._precision = precision
+                    self._saved = torch.backends.cudnn.allow_tf32
+                    torch.backends.cudnn.allow_tf32 = _TF32[precision]
+            self._depth[me] = self._depth.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth[me] -= 1
+                if not self._depth[me]:
+                    del self._depth[me]
+                if not self._depth:
+                    torch.backends.cudnn.allow_tf32 = self._saved
+                    self._precision = None
+                    self._cond.notify_all()
+
+
+_GATE = _PrecisionGate()
+
+
+def precision_gate(precision: str):
+    """Context manager around one unit of a job's device work: cuDNN's
+    convolutions run in TF32 for 'default' and 'high' and in full float32
+    for 'highest' (see _PrecisionGate). Matmuls always run in full float32:
+    the port never sets torch.backends.cuda.matmul.allow_tf32. Raises
+    ValueError for an unknown precision."""
+    return _GATE.hold(precision)
 
 
 def resolve_device(device=None) -> torch.device:

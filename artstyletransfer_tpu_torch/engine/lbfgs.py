@@ -22,15 +22,16 @@ while-loops run a batch: every round of the line search evaluates every
 lane in one batched loss/grad call, a lane whose search has finished is
 masked and keeps its state, and each lane makes its own decisions
 (``_wolfe_search``, one coroutine per lane), so lane b follows its
-single-job trajectory. The history contractions are batched matmuls, and
-the host reads (f, g.d) of all lanes at once, one read per round. The
+single-job trajectory. The history contractions are batched matmuls, in
+full float32 (the port never allows TF32 for matmuls; the JAX package
+runs them at precision=HIGHEST), and the host reads (f, g.d) of all lanes
+at once, one read per round. The
 single-job forms (``LbfgsState``, ``init_state``, ``lbfgs_step``) are the
 B = 1 view of the lane forms.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -68,18 +69,6 @@ def _check_ported(track_grams: bool, state_dtype) -> None:
     if state_dtype not in (None, torch.float32, "float32"):
         raise NotImplementedError(
             "lbfgs_state_dtype='bfloat16' is not ported yet")
-
-
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """No TF32 for the history contractions (the JAX package runs them at
-    precision=HIGHEST). A process-wide switch, restored on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _two_loop_direction_loop(g: torch.Tensor, state: LbfgsState) -> torch.Tensor:
@@ -329,13 +318,12 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
     if k == 0:
         return -g
     S, Y = state.s_hist[:, :k], state.y_hist[:, :k]
-    with _full_fp32_matmul():
-        host = torch.cat([
-            torch.bmm(S, Y.transpose(1, 2)).reshape(nb, k * k),   # S Yᵀ
-            torch.bmm(Y, Y.transpose(1, 2)).reshape(nb, k * k),   # Y Yᵀ
-            torch.bmm(S, g.unsqueeze(2)).squeeze(2),              # S g
-            torch.bmm(Y, g.unsqueeze(2)).squeeze(2),              # Y g
-        ], dim=1).cpu().numpy()
+    host = torch.cat([
+        torch.bmm(S, Y.transpose(1, 2)).reshape(nb, k * k),   # S Yᵀ
+        torch.bmm(Y, Y.transpose(1, 2)).reshape(nb, k * k),   # Y Yᵀ
+        torch.bmm(S, g.unsqueeze(2)).squeeze(2),              # S g
+        torch.bmm(Y, g.unsqueeze(2)).squeeze(2),              # Y g
+    ], dim=1).cpu().numpy()
     rho = state.rho.cpu().numpy()
     P = np.zeros((m, m), _f32)
     Q = np.zeros((m, m), _f32)
@@ -353,12 +341,11 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
                                                   int(state.count[b]))
         coef_s[b], coef_y[b] = cs[:k], cy[:k]  # rows >= k are never valid
     dev = g.device
-    with _full_fp32_matmul():
-        r = (torch.from_numpy(gamma).to(dev).unsqueeze(1) * g
-             + torch.bmm(torch.from_numpy(coef_s).to(dev).unsqueeze(1),
-                         S).squeeze(1)
-             + torch.bmm(torch.from_numpy(coef_y).to(dev).unsqueeze(1),
-                         Y).squeeze(1))
+    r = (torch.from_numpy(gamma).to(dev).unsqueeze(1) * g
+         + torch.bmm(torch.from_numpy(coef_s).to(dev).unsqueeze(1),
+                     S).squeeze(1)
+         + torch.bmm(torch.from_numpy(coef_y).to(dev).unsqueeze(1),
+                     Y).squeeze(1))
     return -r
 
 

@@ -35,7 +35,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, apply_precision, resolve_device
+from ..config import Config, precision_gate, resolve_device
 from ..models.vgg19 import CONTENT_INDEX, STYLE_INDICES, extract_features
 from ..models.weights import load_vgg19_params, params_from_jax
 from ..ops.gram import gram_matrix
@@ -257,7 +257,6 @@ class TransferJob:
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_supported(cfg)
-        apply_precision(cfg)
         if params is None:
             params = load_vgg19_params(seed=cfg.seed)
         self.params = params_from_jax(params, self.device)
@@ -273,7 +272,8 @@ class TransferJob:
         c_pre = [on_device(c) for c in content_levels]
         s_pre = [on_device(s) for s in style_levels]
         self._loss_fn = _make_pyramid_loss(self.level_shapes, cfg)
-        self.targets = _compute_targets(self.params, c_pre, s_pre, cfg)
+        with precision_gate(cfg.conv_precision):
+            self.targets = _compute_targets(self.params, c_pre, s_pre, cfg)
 
         self.last_level_losses = None  # set by run(report_level_losses=True)
         if init_override is not None:
@@ -298,7 +298,8 @@ class TransferJob:
 
     @torch.no_grad()
     def _metrics(self, x: torch.Tensor):
-        total, per_level = self._loss_fn(self.params, self.targets, x)
+        with precision_gate(self.cfg.conv_precision):
+            total, per_level = self._loss_fn(self.params, self.targets, x)
         return float(total), [tuple(float(v) for v in (l.total, l.content,
                                                        l.style, l.tv))
                               for l in per_level]
@@ -335,41 +336,42 @@ class TransferJob:
         if checkpoint_path or checkpoint_every or resume:
             raise NotImplementedError("checkpoint/resume is not ported yet")
         cfg = self.cfg
-        apply_precision(cfg)
         iters = iters_num if iters_num is not None else cfg.iters_num
         chunk = stream_every if stream_every is not None else cfg.stream_every
         chunk = max(1, min(chunk, iters))
 
         x = self._x0.clone()
-        opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
-            self._loss_grad, x, cfg)
+        with precision_gate(cfg.conv_precision):
+            opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
+                self._loss_grad, x, cfg)
         done = 0
         check_stop = cfg.stop_tol > 0.0
         f_prev = None
         while done < iters:
-            k = min(chunk, iters - done)
-            for i in range(k):
-                x, f = opt.step(x, done + i)
-            f = f[0]  # the one lane's loss, as a 0-d tensor
-            done += k
-            converged = False
-            if check_stop:
-                f = float(f)
-                if cfg.nan_checks and not np.isfinite(f):
-                    _raise_nonfinite(f, done, cfg)
-                if (f_prev is not None
-                        and abs(f_prev - f) <= cfg.stop_tol * max(1.0, abs(f))):
-                    converged = True
-                f_prev = f
-            sync = yield_images or done >= iters or converged
-            img = None
-            if sync:
-                f = float(f)
-                if cfg.nan_checks and not np.isfinite(f):
-                    _raise_nonfinite(f, done, cfg)
-                img = self._image(x)
-                if report_level_losses:
-                    _total, self.last_level_losses = self._metrics(x)
+            with precision_gate(cfg.conv_precision):  # released at the yield
+                k = min(chunk, iters - done)
+                for i in range(k):
+                    x, f = opt.step(x, done + i)
+                f = f[0]  # the one lane's loss, as a 0-d tensor
+                done += k
+                converged = False
+                if check_stop:
+                    f = float(f)
+                    if cfg.nan_checks and not np.isfinite(f):
+                        _raise_nonfinite(f, done, cfg)
+                    if (f_prev is not None and abs(f_prev - f)
+                            <= cfg.stop_tol * max(1.0, abs(f))):
+                        converged = True
+                    f_prev = f
+                sync = yield_images or done >= iters or converged
+                img = None
+                if sync:
+                    f = float(f)
+                    if cfg.nan_checks and not np.isfinite(f):
+                        _raise_nonfinite(f, done, cfg)
+                    img = self._image(x)
+                    if report_level_losses:
+                        _total, self.last_level_losses = self._metrics(x)
             yield done, img, f
             if converged:
                 return

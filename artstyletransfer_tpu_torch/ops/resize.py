@@ -62,8 +62,9 @@ def _device_matrix(n_in: int, n_out: int, device: str) -> torch.Tensor:
 def bicubic_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bicubic-resize an NHWC (or HWC) tensor to (out_h, out_w).
 
-    Two matmul passes on img's device, float32 accumulation. On CUDA the
-    passes follow the process's TF32 switch (config.apply_precision).
+    Two matmul passes on img's device, in full float32 at every
+    conv_precision: the port never allows TF32 for matmuls (the JAX
+    package runs these at the job's precision).
     """
     squeeze = img.dim() == 3
     if squeeze:

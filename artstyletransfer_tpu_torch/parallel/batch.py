@@ -30,7 +30,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, apply_precision, resolve_device
+from ..config import Config, precision_gate, resolve_device
 from ..engine.init_pipeline import build_init_image
 from ..engine.pyramid import build_input_pyramids, level_shape
 from ..engine.transfer import (_Adam, _Lbfgs, _check_supported,
@@ -98,7 +98,6 @@ class BatchedTransferJob:
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_supported(cfg)
-        apply_precision(cfg)
         if params is None:
             params = load_vgg19_params(seed=cfg.seed)
         self.params = params_from_jax(params, self.device)
@@ -149,7 +148,8 @@ class BatchedTransferJob:
         c_dev = [lanes_on_device(c_stack, lvl) for lvl in range(n_levels)]
         s_dev = [lanes_on_device(s_stack, lvl) for lvl in range(n_levels)]
         self._loss_fn = _make_pyramid_loss(self.level_shapes, cfg)
-        self.targets = _compute_targets(self.params, c_dev, s_dev, cfg)
+        with precision_gate(cfg.conv_precision):
+            self.targets = _compute_targets(self.params, c_dev, s_dev, cfg)
         self._x0 = torch.from_numpy(np.stack(x0)).to(self.device)  # (B, n)
 
     def _loss_grad(self, x: torch.Tensor, targets):
@@ -163,7 +163,8 @@ class BatchedTransferJob:
     @torch.no_grad()
     def initial_losses(self) -> np.ndarray:
         """(real_batch,) total losses at the init images."""
-        total, _ = self._loss_fn(self.params, self.targets, self._x0)
+        with precision_gate(self.cfg.conv_precision):
+            total, _ = self._loss_fn(self.params, self.targets, self._x0)
         return total[:self.real_batch].cpu().numpy()
 
     def run(self, iters_num: Optional[int] = None,
@@ -192,7 +193,6 @@ class BatchedTransferJob:
         if checkpoint_path or checkpoint_every or resume:
             raise NotImplementedError("checkpoint/resume is not ported yet")
         cfg = self.cfg
-        apply_precision(cfg)
         iters = iters_num if iters_num is not None else cfg.iters_num
         chunk = stream_every if stream_every is not None else cfg.stream_every
         chunk = max(1, min(chunk, iters))
@@ -203,8 +203,9 @@ class BatchedTransferJob:
             return self._loss_grad(x, targets)
 
         x = self._x0.clone()
-        opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
-            loss_grad, x, cfg)
+        with precision_gate(cfg.conv_precision):
+            opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
+                loss_grad, x, cfg)
         done = 0
         top = self.level_shapes[0]  # (1, H, W, 3) per job
         check_stop = cfg.stop_tol > 0.0
@@ -247,67 +248,72 @@ class BatchedTransferJob:
             return done_k, imgs_k, losses_k
 
         while done < iters:
-            k = min(chunk, iters - done)
-            for i in range(k):
-                x, f = opt.step(x, done + i)
-            done += k
-            converged = False
-            f_np = None
-            if check_stop:
-                f_np = f.cpu().numpy()
-                # a NaN can never satisfy the convergence test: surface it
-                # now instead of burning the remaining budget
-                if cfg.nan_checks:
-                    bad = [orig for lane, orig in enumerate(lane_orig)
-                           if orig is not None and not np.isfinite(f_np[lane])]
-                    if bad:
-                        _raise_nonfinite_batch(bad, done, self.real_batch, cfg)
-                ready = []   # (lane, orig, loss): latched, still in batch
-                still = []   # lanes of real jobs not yet converged
-                for lane, orig in enumerate(lane_orig):
-                    if orig is None:
-                        continue
-                    cur = float(f_np[lane])
-                    prev = f_prev.get(orig)
-                    if (orig in latched
-                            or (prev is not None
-                                and abs(prev - cur)
-                                <= cfg.stop_tol * max(1.0, abs(cur)))):
-                        latched.add(orig)
-                        ready.append((lane, orig, cur))
-                    else:
-                        still.append(lane)
-                    f_prev[orig] = cur
-                if ready and not still:
-                    converged = True  # every remaining job is done
-                elif ready and still and shrink and done < iters:
-                    tgt = shrink_target(len(still))
-                    if tgt < len(lane_orig):
-                        # freeze the converged jobs' results now, then keep
-                        # the remaining lanes, re-padded by repeating the
-                        # last one
-                        rows = x.reshape((len(lane_orig),) + top[1:])
-                        for lane, orig, cur in ready:
-                            finished[orig] = (rows[lane].cpu().numpy(), cur)
-                        sel = still + [still[-1]] * (tgt - len(still))
-                        print(f"stop_tol: {len(ready)} job(s) converged at "
-                              f"step {done}; batch {len(lane_orig)} -> "
-                              f"{tgt}", file=sys.stderr)
-                        idx = torch.as_tensor(sel, dtype=torch.long,
-                                              device=x.device)
-                        x = x.index_select(0, idx)
-                        f = f.index_select(0, idx)
-                        opt.select(sel)
-                        targets = _select_targets(targets, idx)
-                        f_np = f_np[sel]
-                        lane_orig = ([lane_orig[ln] for ln in still]
-                                     + [None] * (tgt - len(still)))
-            if yield_images or done >= iters or converged:
-                yield materialize(done, x, f)
-            elif f_np is not None:
-                yield done, None, compose_losses(f_np)
-            else:
-                yield done, None, f
+            with precision_gate(cfg.conv_precision):  # released at the yield
+                k = min(chunk, iters - done)
+                for i in range(k):
+                    x, f = opt.step(x, done + i)
+                done += k
+                converged = False
+                f_np = None
+                if check_stop:
+                    f_np = f.cpu().numpy()
+                    # a NaN can never satisfy the convergence test:
+                    # surface it now instead of burning the remaining budget
+                    if cfg.nan_checks:
+                        bad = [orig for lane, orig in enumerate(lane_orig)
+                               if orig is not None
+                               and not np.isfinite(f_np[lane])]
+                        if bad:
+                            _raise_nonfinite_batch(bad, done,
+                                                   self.real_batch, cfg)
+                    ready = []   # (lane, orig, loss): latched, still in batch
+                    still = []   # lanes of real jobs not yet converged
+                    for lane, orig in enumerate(lane_orig):
+                        if orig is None:
+                            continue
+                        cur = float(f_np[lane])
+                        prev = f_prev.get(orig)
+                        if (orig in latched
+                                or (prev is not None
+                                    and abs(prev - cur)
+                                    <= cfg.stop_tol * max(1.0, abs(cur)))):
+                            latched.add(orig)
+                            ready.append((lane, orig, cur))
+                        else:
+                            still.append(lane)
+                        f_prev[orig] = cur
+                    if ready and not still:
+                        converged = True  # every remaining job is done
+                    elif ready and still and shrink and done < iters:
+                        tgt = shrink_target(len(still))
+                        if tgt < len(lane_orig):
+                            # freeze the converged jobs' results now, then
+                            # keep the remaining lanes, re-padded by
+                            # repeating the last one
+                            rows = x.reshape((len(lane_orig),) + top[1:])
+                            for lane, orig, cur in ready:
+                                finished[orig] = (rows[lane].cpu().numpy(),
+                                                  cur)
+                            sel = still + [still[-1]] * (tgt - len(still))
+                            print(f"stop_tol: {len(ready)} job(s) converged at "
+                                  f"step {done}; batch {len(lane_orig)} -> "
+                                  f"{tgt}", file=sys.stderr)
+                            idx = torch.as_tensor(sel, dtype=torch.long,
+                                                  device=x.device)
+                            x = x.index_select(0, idx)
+                            f = f.index_select(0, idx)
+                            opt.select(sel)
+                            targets = _select_targets(targets, idx)
+                            f_np = f_np[sel]
+                            lane_orig = ([lane_orig[ln] for ln in still]
+                                         + [None] * (tgt - len(still)))
+                if yield_images or done >= iters or converged:
+                    out = materialize(done, x, f)
+                elif f_np is not None:
+                    out = done, None, compose_losses(f_np)
+                else:
+                    out = done, None, f
+            yield out
             if converged:
                 return
 

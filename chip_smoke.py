@@ -8,24 +8,26 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
 
 1. build    — compiles every kernel source (in parallel) and reports the
               card's name and power limit (nvidia-smi); both Gram
-              libraries (forward and backward) must hold tensor-core
-              instructions (HMMA in `cuobjdump -sass`), no atomics, and
-              no spills in their ptxas reports;
+              libraries (forward and backward) and the conv library must
+              hold tensor-core instructions (HMMA in `cuobjdump -sass`),
+              no atomics, and no spills in their ptxas reports;
 2. kernels  — calls each kernel on the card at every shape the main path
               gives it (Gram forward/backward in float32 and bfloat16, TV
               at 512², 256² and 511x769), the batched Gram, Gram-backward
               and TV at 8 lanes of the 512 px shapes and at the queue
               phase's own lane counts and shapes (one launch each),
               and the fused conv3x3+bias+ReLU at all 26 convs of the
-              truncated VGG19 at 512² and 256² inputs (plus one gradient
+              truncated VGG19 at 512² and 256² inputs and at 8 images of
+              the 512 px level's 13 (one launch each; plus one gradient
               check through its autograd Function); holds each against its
               plain PyTorch version with a stated tolerance, and times it
               (device time from torch.profiler) beside its bound, the plain
-              version and one library call (both Gram kernels also
+              version and one library call (the Gram and conv kernels also
               beside their bounds at the TF32 tensor-core rate, and two
               calls on the same inputs must give the same bits; the
-              float32 Gram forward must also be within max(1e-5, twice
-              the plain version's) relative error of the float64 Gram);
+              float32 Gram forward and the conv must also be within
+              max(1e-5, twice the plain version's) relative error of the
+              same function in float64);
 3. golden   — reruns two of the JAX package's committed one-step goldens
               (tests/goldens) on the card at full float32 precision;
 4. main     — drives the main path, Executor -> neural_style_transfer ->
@@ -210,11 +212,11 @@ def bound(bytes_moved: float, ops: float, dtype: str, rate=None):
 
 
 def tc_bounds(bytes_moved, ops, elem, bf16_products):
-    """A Gram kernel's two bounds: `ops` at the dtype's rate of earlier runs
+    """A kernel's two bounds: `ops` at the dtype's rate of earlier runs
     (`bound_ms`: f32 CUDA cores, bf16 tensor cores) and the 3xTF32
     design's work at the TF32 tensor-core rate (`bound_tc_ms`): 3 products
-    for float32 F, `bf16_products` for bfloat16 F (exact in TF32, no low
-    part)."""
+    for float32 operands, `bf16_products` for bfloat16 F (exact in TF32,
+    no low part)."""
     dtype = "float32" if elem == 4 else "bfloat16"
     b_ms, b_by = bound(bytes_moved, ops, dtype)
     tc_ms, tc_by = bound(bytes_moved, (3 if elem == 4 else bf16_products)
@@ -238,21 +240,26 @@ def gram_bwd_bounds(n, c, elem, lanes=1):
                      lanes * 2 * n * c * c, elem, 2)
 
 
-def gram_f64_check(f, s, out, ref, shape):
-    """The float32 Gram forward against the float64 Gram: (kernel's, plain
-    version's) relative error; the kernel's must be at most max(1e-5,
-    2 x the plain version's), which alone errs by up to 5e-5 at 262144+
-    rows, too much to judge the kernel by."""
-    f64 = f.double()
-    g64 = (f64.transpose(-1, -2) @ f64) * s
-    scale = float(g64.abs().max())
-    k_rel = float((out.double() - g64).abs().max()) / scale
-    p_rel = float((ref.double() - g64).abs().max()) / scale
+def f64_check(name, out, ref, ref64, shape):
+    """A float32 kernel's output against the same function in float64:
+    (kernel's, plain version's) relative error; the kernel's must be at
+    most max(1e-5, 2 x the plain version's), which alone errs by up to
+    5e-5 at the largest Gram shapes, too much to judge the kernel by."""
+    scale = float(ref64.abs().max())
+    k_rel = float((out.double() - ref64).abs().max()) / scale
+    p_rel = float((ref.double() - ref64).abs().max()) / scale
     if not k_rel <= max(1e-5, 2 * p_rel):
-        raise AssertionError(f"gram float32 {shape}: relative error "
+        raise AssertionError(f"{name} float32 {shape}: relative error "
                              f"{k_rel:.3e} against float64 (plain "
                              f"{p_rel:.3e})")
     return dict(rel_err_f64=k_rel, plain_rel_err_f64=p_rel)
+
+
+def gram_f64_check(f, s, out, ref, shape):
+    """The float32 Gram forward against the float64 Gram (f64_check)."""
+    f64 = f.double()
+    return f64_check("gram", out, ref,
+                     (f64.transpose(-1, -2) @ f64) * s, shape)
 
 
 def same_bits(name, out, again):
@@ -279,7 +286,8 @@ def phase_build():
            "per_source_seconds": {k: round(v, 3) for k, v in per_source.items()},
            "gpu": smi,
            "gram_bwd": tc_sass(build, "gram_bwd", ptxas["gram_bwd"]),
-           "gram": tc_sass(build, "gram", ptxas["gram"])}
+           "gram": tc_sass(build, "gram", ptxas["gram"]),
+           "conv_relu": tc_sass(build, "conv_relu", ptxas["conv_relu"])}
     emit(rec)
     RECORD["build"] = dict(rec, ptxas=ptxas)
     return smi
@@ -472,12 +480,12 @@ def batched_rows(gen, rows):
             emit(dict(phase="kernels", **rows[-1]))
 
 
-def conv_inputs(gen, size, cin, cout):
+def conv_inputs(gen, size, cin, cout, images=1):
     """Post-ReLU-like activations, He-scaled HWIO weights, small biases."""
     import torch
 
     dev = torch.device("cuda")
-    x = torch.relu(torch.randn((1, size, size, cin), generator=gen,
+    x = torch.relu(torch.randn((images, size, size, cin), generator=gen,
                                device=dev))
     w = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (
         2.0 / (9 * cin)) ** 0.5
@@ -487,30 +495,44 @@ def conv_inputs(gen, size, cin, cout):
 
 def conv_rows(gen, rows):
     """The fused conv kernel at every conv of the truncated VGG19 at both
-    level inputs, against conv_relu_plain; library: cuDNN's F.conv2d on
-    channels_last tensors (bias in the call), then ReLU. TF32 is off."""
+    level inputs, one image, and at LANES images of the 512 px level's 13
+    convs (one launch per call, rows with `lanes`), against
+    conv_relu_plain and against the same conv in float64; two calls must
+    give the same bits. Library: cuDNN's F.conv2d on channels_last tensors
+    (bias in the call), then ReLU. TF32 is off. Bounds: 2*P*9*Cin*Cout
+    operations (P output pixels) over the f32 rate (`bound_ms`) and 3x
+    them over the TF32 tensor-core rate (`bound_tc_ms`), or the bytes."""
     import torch
     import torch.nn.functional as F
 
     from artstyletransfer_tpu_torch.kernels import conv_relu as kconv
 
-    for size, cin, cout in CONV_SHAPES:
-        x, w, b = conv_inputs(gen, size, cin, cout)
-        out = kconv.conv_relu_cuda(x, w, b)
+    shapes = [(1, size, cin, cout) for size, cin, cout in CONV_SHAPES]
+    shapes += [(LANES, 512 // div, cin, cout)
+               for div, cin, cout in VGG_CONVS]
+    for images, size, cin, cout in shapes:
+        x, w, b = conv_inputs(gen, size, cin, cout, images)
+        out = one_launch("conv_relu", lambda: kconv.conv_relu_cuda(x, w, b))
         ref = kconv.conv_relu_plain(x, w, b)
+        same_bits("conv_relu", out, kconv.conv_relu_cuda(x, w, b))
         torch.cuda.synchronize()
-        err, rel, tol = _check("conv_relu", "float32", out, ref,
-                               (size, cin, cout))
+        shape = (images, size, cin, cout)
+        err, rel, tol = _check("conv_relu", "float32", out, ref, shape)
+        f64 = f64_check("conv_relu", out, ref,
+                        kconv.conv_relu_plain(x.double(), w.double(),
+                                              b.double()), shape)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         w_cl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        n_px = size * size
-        b_ms, b_by = bound((n_px * (cin + cout) + 9 * cin * cout + cout) * 4,
-                           2 * n_px * 9 * cin * cout, "float32")
+        n_px = images * size * size
+        lanes = {} if images == 1 else {"lanes": images}
         rows.append(dict(
-            kernel="conv_relu", dtype="float32", h=size, w=size, cin=cin,
-            cout=cout, max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
-            bound_by=b_by,
+            kernel="conv_relu", dtype="float32", **lanes, h=size, w=size,
+            cin=cin, cout=cout,
+            tensor_cores=kconv.uses_tensor_cores(x, w), max_abs_err=err,
+            rel_err=rel, tol=tol, **f64,
+            **tc_bounds((n_px * (cin + cout) + 9 * cin * cout + cout) * 4,
+                        2 * n_px * 9 * cin * cout, 4, None),
             **timings(lambda: kconv.conv_relu_cuda(x, w, b),
                       lambda: kconv.conv_relu_plain(x, w, b),
                       lambda: torch.relu_(F.conv2d(x_cl, w_cl, b,
@@ -556,9 +578,9 @@ def kernel_summary(rows, paths):
     """One entry per kernel: the single-job main path's float32 shapes of
     one loss evaluation (for conv_relu: the 26 VGG19 convs of one
     evaluation's forward), times summed over them (kernel, plain, library,
-    bound; both Gram kernels also their tensor-core bound); launches summed
-    over the driven paths, and per path. The Gram kernels and TV also
-    carry `lanes8`: the same sums over the 8-lane batched rows."""
+    bound; the Gram and conv kernels also their tensor-core bound);
+    launches summed over the driven paths, and per path. Each kernel also
+    carries `lanes8`: the same sums over its 8-lane (8-image) rows."""
     main_tv = {(h, w) for h, w in TV_SHAPES}
     out = []
     for name, meta in KERNELS.items():

@@ -102,3 +102,98 @@ def test_conv_relu_wrappers_never_fall_back(rng):
     meta = [t.to("meta") for t in (x, w, b)]
     with pytest.raises(ValueError):
         kconv.conv_relu(*meta)
+
+
+# (h = w at the 512 px level input, cin, cout) of the truncated VGG19's
+# 13 convs, as chip_smoke.py's VGG_CONVS
+_VGG_CONVS = [(512, 3, 64), (512, 64, 64), (256, 64, 128), (256, 128, 128),
+              (128, 128, 256), (128, 256, 256), (128, 256, 256),
+              (128, 256, 256), (64, 256, 512), (64, 512, 512),
+              (64, 512, 512), (64, 512, 512), (32, 512, 512)]
+_SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize("images", [1, 8])
+def test_conv_split_plan_covers_channels(images):
+    """The tensor-core kernel's split over input channels at the 26 VGG19
+    convs (512 px and 256 px level inputs): the splits' whole 16-channel
+    chunks cover every input channel exactly once, every split is
+    non-empty, and a grid under one wave of an H100's 132 SMs is split
+    into at least one wave (the 16^2 and 32^2 convs at one image); a grid
+    of a wave or more is not split."""
+    for level in (1, 2):
+        for size, cin, cout in _VGG_CONVS:
+            h = w = size // level
+            splits, per = kconv.split_plan(images, h, w, cin, cout, _SMS)
+            chunks = -(-cin // 16)
+            channels = [c for s in range(splits)
+                        for c in range(16 * s * per,
+                                       min(cin, 16 * (s + 1) * per))]
+            assert channels == list(range(cin))
+            assert (splits - 1) * per < chunks <= splits * per
+            blocks = -(-h // 8) * -(-w // 16) * -(-cout // 64) * images
+            if blocks >= _SMS:
+                assert splits == 1
+            else:
+                assert blocks * splits >= _SMS, (h, cin, cout, splits)
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32, to nearest with ties away from zero
+    (csrc/conv_relu.cu's split(), as a bit mask)."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000))
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x: np.ndarray) -> np.ndarray:
+    """The TF32 value the tensor core reads from a float32 operand."""
+    return (x.astype(np.float32).view(np.uint32)
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("hw, cin, cout", [(8, 64, 64), (16, 512, 512)])
+def test_conv_3xtf32_chunk_sums_are_float32_accurate(hw, cin, cout):
+    """The numerical argument of csrc/conv_relu.cu's tensor-core kernel,
+    emulated in numpy: per 16-channel chunk, the nine taps' products
+    x_lo w_hi + x_hi w_lo + x_hi w_hi (hi rounded to nearest TF32, lo read
+    truncated) summed from zero in float32 and added to the split's sum;
+    the wrapper's splits (4 and 11 here) added in order, then the bias and
+    the ReLU. That is within 1e-6 of the float64 conv (float32 rounding),
+    while one TF32 product per tap is not within the kernel's 1e-4.
+    Inputs as chip_smoke.py draws them: post-ReLU x, He-scaled weights."""
+    rng = np.random.default_rng(0)
+    x = np.maximum(rng.standard_normal((hw, hw, cin)), 0).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout))
+         * np.sqrt(2.0 / (9 * cin))).astype(np.float32).reshape(9, cin, cout)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    pad = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+    taps = np.stack([pad[dy:dy + hw, dx:dx + hw].reshape(hw * hw, cin)
+                     for dy in range(3) for dx in range(3)])
+    ref = np.maximum(np.einsum("tpc,tco->po", taps.astype(np.float64),
+                               w.astype(np.float64)) + b, 0.0)
+
+    def rel(out):
+        return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+    x_hi, w_hi = _tf32_rna(taps), _tf32_rna(w)
+    x_lo, w_lo = _tf32_trunc(taps - x_hi), _tf32_trunc(w - w_hi)
+    splits, per = kconv.split_plan(1, hw, hw, cin, cout, _SMS)
+    assert splits > 1
+    total = np.zeros((hw * hw, cout), np.float32)
+    one = np.zeros((hw * hw, cout), np.float32)
+    for s in range(splits):
+        acc = np.zeros_like(total)
+        for c0 in range(16 * s * per, min(cin, 16 * (s + 1) * per), 16):
+            k = slice(c0, c0 + 16)
+            part = np.zeros_like(acc)
+            for t in range(9):
+                part += (x_lo[t][:, k] @ w_hi[t][k]
+                         + x_hi[t][:, k] @ w_lo[t][k]
+                         + x_hi[t][:, k] @ w_hi[t][k])
+                one += x_hi[t][:, k] @ w_hi[t][k]
+            acc += part
+        total += acc
+    assert total.dtype == np.float32
+    assert rel(np.maximum(total + b, 0.0)) <= 1e-6
+    assert rel(np.maximum(one + b, 0.0)) > 1e-4

@@ -102,17 +102,32 @@ def test_config_matches_jax_package():
 
 
 def test_apply_precision_maps_tf32():
+    """The precision gate's mapping: inside it cuDNN's TF32 switch follows
+    conv_precision ('highest' off, 'default' and 'high' on), the matmul
+    switch is never touched, and on leaving the gate the cuDNN switch gets
+    back its value from before; an unknown precision raises."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     try:
-        port_config.apply_precision(port_config.Config(conv_precision="highest"))
-        assert not torch.backends.cudnn.allow_tf32
-        assert not torch.backends.cuda.matmul.allow_tf32
-        port_config.apply_precision(port_config.Config(conv_precision="default"))
-        assert torch.backends.cudnn.allow_tf32
-        assert torch.backends.cuda.matmul.allow_tf32
+        for before in (True, False):
+            for matmul in (True, False):
+                torch.backends.cudnn.allow_tf32 = before
+                torch.backends.cuda.matmul.allow_tf32 = matmul
+                for precision, tf32 in (("highest", False), ("default", True),
+                                        ("high", True)):
+                    with port_config.precision_gate(precision):
+                        assert torch.backends.cudnn.allow_tf32 is tf32
+                        assert torch.backends.cuda.matmul.allow_tf32 is matmul
+                    assert torch.backends.cudnn.allow_tf32 is before
         with pytest.raises(ValueError):
-            port_config.apply_precision(port_config.Config(conv_precision="x"))
+            with port_config.precision_gate("x"):
+                pass
+        with port_config.precision_gate("highest"):
+            with port_config.precision_gate("highest"):  # re-entry: no wait
+                assert not torch.backends.cudnn.allow_tf32
+            with pytest.raises(RuntimeError):
+                with port_config.precision_gate("default"):
+                    pass
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
