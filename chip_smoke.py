@@ -13,9 +13,10 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               no atomics, and no spills in their ptxas reports;
 2. kernels  — calls each kernel on the card at every shape the main path
               gives it (Gram forward/backward in float32 and bfloat16, TV
-              at 512², 256² and 511x769), the batched Gram, Gram-backward
-              and TV at 8 lanes of the 512 px shapes and at the queue
-              phase's own lane counts and shapes (one launch each),
+              forward and backward at 512², 256² and 511x769), the batched
+              Gram, Gram-backward and TV forward/backward at 8 lanes of the
+              512 px shapes and at the queue phase's own lane counts and
+              shapes (one launch each),
               and the fused conv3x3+bias+ReLU at all 26 convs of the
               truncated VGG19 at 512² and 256² inputs and at 8 images of
               the 512 px level's 13 (one launch each; plus one gradient
@@ -25,9 +26,14 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               version and one library call (the Gram and conv kernels also
               beside their bounds at the TF32 tensor-core rate, and two
               calls on the same inputs must give the same bits; the
-              float32 Gram forward and the conv must also be within
-              max(1e-5, twice the plain version's) relative error of the
-              same function in float64);
+              float32 Gram forward, the conv and both TV kernels must also
+              be within max(1e-5, twice the plain version's) relative error
+              of the same function in float64; the TV backward must be 0
+              wherever its plain version is); and one `tv_autograd` row per
+              lane count (1 and 8) and level shape: lane_total_variation
+              forward and backward, host ms per call and the CUDA kernels
+              of one call, beside the TvMeansFn path (the parent design's
+              glue: sums, means, squares, plain backward);
 3. golden   — reruns two of the JAX package's committed one-step goldens
               (tests/goldens) on the card at full float32 precision;
 4. main     — drives the main path, Executor -> neural_style_transfer ->
@@ -47,7 +53,8 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               Counters are zeroed before and read after each;
               every lane's loss must be finite and fall, the kernels'
               launches per batched evaluation must not depend on the number
-              of lanes, and at full float32 the first Adam lane must end
+              of lanes (TV: one forward and one backward per level), and at
+              full float32 the first Adam lane must end
               within rtol 1e-3 of the same job run alone (whose steps/s is
               reported beside each queue's). The fused conv kernel is not
               on any path (VGG runs on cuDNN, as on XLA in the JAX
@@ -83,6 +90,9 @@ KERNELS = {
     "gram": dict(source=SRC + "gram.cu", replaces=PALLAS + ":52"),
     "gram_bwd": dict(source=SRC + "gram_bwd.cu", replaces=PALLAS + ":107"),
     "tv": dict(source=SRC + "tv.cu", replaces=PALLAS + ":171"),
+    "tv_bwd": dict(source=SRC + "tv.cu", replaces=PALLAS + ":222",
+                   replaces_note="_tv_vjp_bwd, the VJP of _tv_impl: XLA in "
+                                 "the JAX package, not a Pallas kernel"),
     "conv_relu": dict(source=SRC + "conv_relu.cu", replaces=PALLAS + ":267"),
 }
 NOT_ON_PATH = {"conv_relu": "no path runs it: VGG19's convs stay on cuDNN, "
@@ -117,7 +127,7 @@ TOL = {  # max |kernel - plain| / max |plain|
     ("gram", "float32"): 1e-4, ("gram", "bfloat16"): 1e-4,
     ("gram_bwd", "float32"): 1e-4,
     ("gram_bwd", "bfloat16"): 1e-2,  # output rounded to bf16 (2^-8)
-    ("tv", "float32"): 1e-4,
+    ("tv", "float32"): 1e-4, ("tv_bwd", "float32"): 1e-4,
     # 9*cin products per output summed in another order than cuDNN's
     # (TF32 off on both sides)
     ("conv_relu", "float32"): 1e-4, ("conv_relu_grad", "float32"): 1e-4,
@@ -332,7 +342,6 @@ def phase_kernels():
     import torch
 
     from artstyletransfer_tpu_torch.kernels import gram as kgram
-    from artstyletransfer_tpu_torch.kernels import tv as ktv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -378,19 +387,9 @@ def phase_kernels():
                           lambda: torch.matmul(f, g_lib))))
             emit(dict(phase="kernels", **rows[-1]))
     for h, w in TV_SHAPES + TV_EXTRA:
-        y = torch.randn((1, h, w, 3), generator=gen, device=dev) * 100.0
-        out = ktv.tv_sums_cuda(y)
-        ref = ktv.tv_sums_plain(y)
-        torch.cuda.synchronize()
-        err, rel, tol = _check("tv", "float32", out, ref, (h, w))
-        b_ms, b_by = bound(y.numel() * 4 + 8, 6 * y.numel(), "float32")
-        rows.append(dict(
-            kernel="tv", dtype="float32", h=h, w=w, max_abs_err=err,
-            rel_err=rel, tol=tol, bound_ms=b_ms, bound_by=b_by,
-            **timings(lambda: ktv.tv_sums_cuda(y),
-                      lambda: ktv.tv_sums_plain(y), None)))
-        emit(dict(phase="kernels", **rows[-1]))
+        tv_rows(gen, rows, 1, h, w)
     batched_rows(gen, rows)
+    tv_autograd_rows(gen)
     conv_rows(gen, rows)
     conv_grad_check(gen)
     RECORD["kernels"] = rows
@@ -417,13 +416,12 @@ def tap_grams(h, w):
 
 
 def batched_rows(gen, rows):
-    """The Gram forward/backward and TV at each BATCHED lane count and
-    level, float32, one launch per call, against the batched plain
-    versions; library: torch.bmm."""
+    """The Gram forward/backward and TV forward/backward at each BATCHED
+    lane count and level, float32, one launch per call, against the
+    batched plain versions; library (Gram): torch.bmm."""
     import torch
 
     from artstyletransfer_tpu_torch.kernels import gram as kgram
-    from artstyletransfer_tpu_torch.kernels import tv as ktv
 
     dev = torch.device("cuda")
     for lanes, levels in BATCHED:
@@ -463,21 +461,135 @@ def batched_rows(gen, rows):
                           lambda: torch.bmm(f, g))))
             emit(dict(phase="kernels", **rows[-1]))
         for h, w in levels:
-            y = torch.randn((lanes, h, w, 3), generator=gen,
-                            device=dev) * 100.0
-            out = one_launch("tv", lambda: ktv.tv_sums_cuda(y))
-            ref = ktv.tv_sums_plain(y)
+            tv_rows(gen, rows, lanes, h, w)
+
+
+def tv_rows(gen, rows, lanes, h, w):
+    """The TV forward and backward kernels on `lanes` integer-valued h x w
+    x 3 images (8-bit-like, so neighbours tie), one launch each whatever
+    the lanes, against their plain versions (forward: tv and means;
+    backward: the plain glue it replaces, with a distinct cotangent per
+    lane) and against both in float64; two calls must give the same bits,
+    and the backward must be 0 wherever the plain one is. Bounds: the
+    forward reads y once and writes 5 floats per lane (6 operations per
+    element); the backward reads y, g and the means once and writes the
+    grad (13 operations per element). No single library call computes
+    either."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import tv as ktv
+
+    dev = torch.device("cuda")
+    y = torch.randint(-128, 128, (lanes, h, w, 3), generator=gen,
+                      device=dev).float()
+    g = torch.rand((lanes,), generator=gen, device=dev) + 0.5
+    shape = (lanes, h, w)
+    tag = {} if lanes == 1 else {"lanes": lanes}
+
+    tv, means = one_launch("tv", lambda: ktv.tv_cuda(y))
+    again = ktv.tv_cuda(y)
+    same_bits("tv", torch.cat([tv[:, None], means], 1),
+              torch.cat([again[0][:, None], again[1]], 1))
+    ref_tv, ref_means = ktv.tv_plain(y)
+    tv64, means64 = ktv.tv_plain(y.double())
+    torch.cuda.synchronize()
+    checks = [_check("tv", "float32", tv, ref_tv, shape),
+              _check("tv", "float32", means, ref_means, shape)]
+    f64 = [f64_check("tv", tv, ref_tv, tv64, shape),
+           f64_check("tv", means, ref_means, means64, shape)]
+    b_ms, b_by = bound(y.numel() * 4 + lanes * 20, 6 * y.numel(), "float32")
+    rows.append(dict(
+        kernel="tv", dtype="float32", **tag, h=h, w=w,
+        max_abs_err=max(c[0] for c in checks),
+        rel_err=max(c[1] for c in checks), tol=checks[0][2],
+        **max(f64, key=lambda d: d["rel_err_f64"]),
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ktv.tv_cuda(y), lambda: ktv.tv_plain(y), None)))
+    emit(dict(phase="kernels", **rows[-1]))
+
+    out = one_launch("tv_bwd", lambda: ktv.tv_bwd_cuda(y, g, means))
+    same_bits("tv_bwd", out, ktv.tv_bwd_cuda(y, g, means))
+    ref = ktv.tv_bwd_plain(y, g, means)
+    torch.cuda.synchronize()
+    err, rel, tol = _check("tv_bwd", "float32", out, ref, shape)
+    f64 = f64_check("tv_bwd", out, ktv.tv_bwd_plain(y, g, ref_means),
+                    ktv.tv_bwd_plain(y.double(), g.double(), means64), shape)
+    stray = int(((ref == 0) & (out != 0)).sum())
+    if stray:
+        raise AssertionError(f"tv_bwd {shape}: {stray} elements nonzero "
+                             "where the plain backward is 0")
+    b_ms, b_by = bound(y.numel() * 8 + lanes * 12, 13 * y.numel(), "float32")
+    rows.append(dict(
+        kernel="tv_bwd", dtype="float32", **tag, h=h, w=w, max_abs_err=err,
+        rel_err=rel, tol=tol, **f64, zeros=int((ref == 0).sum()),
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ktv.tv_bwd_cuda(y, g, means),
+                  lambda: ktv.tv_bwd_plain(y, g, means), None)))
+    emit(dict(phase="kernels", **rows[-1]))
+
+
+def host_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Host wall ms per call of fn over reps calls, ending in a
+    synchronize: for calls too small to keep the device busy, the host's
+    cost of issuing them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def tv_autograd_rows(gen):
+    """lane_total_variation forward and backward (torch.autograd.grad with
+    a cotangent per lane) at the single-job level shapes, 1 and LANES
+    lanes: host ms per call, the CUDA kernels of one call (torch.profiler)
+    and their device ms, for the TV Function (one forward and one backward
+    launch) and for the TvMeansFn path, the parent design's glue (sums from
+    the forward kernel, means and squares in PyTorch, the plain backward).
+    The Function must take at most 3 kernels per level."""
+    import torch
+
+    from artstyletransfer_tpu_torch.ops.tv import (TvMeansFn,
+                                                   lane_total_variation)
+
+    def means_path(y):
+        m = TvMeansFn.apply(y)
+        return m[:, 0] * m[:, 0] + m[:, 1] * m[:, 1]
+
+    dev = torch.device("cuda")
+    recs = []
+    for lanes in (1, LANES):
+        for h, w in TV_SHAPES:
+            y = torch.randint(-128, 128, (lanes, h, w, 3), generator=gen,
+                              device=dev).float().requires_grad_(True)
+            g = torch.rand((lanes,), generator=gen, device=dev) + 0.5
+            rec = dict(phase="kernels", kernel="tv_autograd", lanes=lanes,
+                       h=h, w=w)
+            grads = {}
+            for name, f in (("means_path", means_path),
+                            ("function", lane_total_variation)):
+                def call(f=f):
+                    return torch.autograd.grad(f(y), y, g)[0]
+
+                grads[name] = call()
+                ms, kernels = _profiled_device_ms(call, 20)
+                rec[name] = dict(call_ms=host_ms(call), device_ms=ms,
+                                 kernels_per_call=kernels / 20)
             torch.cuda.synchronize()
-            err, rel, tol = _check("tv", "float32", out, ref, (lanes, h, w))
-            b_ms, b_by = bound(y.numel() * 4 + lanes * 8, 6 * y.numel(),
-                               "float32")
-            rows.append(dict(
-                kernel="tv", dtype="float32", lanes=lanes, h=h, w=w,
-                max_abs_err=err, rel_err=rel, tol=tol, bound_ms=b_ms,
-                bound_by=b_by,
-                **timings(lambda: ktv.tv_sums_cuda(y),
-                          lambda: ktv.tv_sums_plain(y), None)))
-            emit(dict(phase="kernels", **rows[-1]))
+            rec["grad_max_abs_diff"] = float(
+                (grads["function"] - grads["means_path"]).abs().max())
+            emit(rec)
+            recs.append(rec)
+            if rec["function"]["kernels_per_call"] > 3:
+                raise AssertionError(f"tv autograd: {rec}")
+            _check("tv_bwd", "float32", grads["function"],
+                   grads["means_path"], (lanes, h, w))
+    RECORD["tv_autograd"] = recs
 
 
 def conv_inputs(gen, size, cin, cout, images=1):
@@ -586,7 +698,7 @@ def kernel_summary(rows, paths):
     for name, meta in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name
                and r["dtype"] == "float32" and "lanes" not in r
-               and (name != "tv" or (r["h"], r["w"]) in main_tv)]
+               and (not name.startswith("tv") or (r["h"], r["w"]) in main_tv)]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel if r["bound_by"] == "operations")
         sums = _sums(sel)
@@ -598,6 +710,8 @@ def kernel_summary(rows, paths):
                   and r.get("lanes") == LANES]
         if lanes8:
             extra["lanes8"] = _sums(lanes8)
+        if "replaces_note" in meta:
+            extra["replaces_note"] = meta["replaces_note"]
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
@@ -936,6 +1050,10 @@ def phase_queue():
         if per_eval[1] != per_eval[LANES]:
             raise AssertionError(f"{name}: launches per evaluation depend on "
                                  f"the lanes: {per_eval}")
+        if any(per_eval[1][k] != cfg.levels_num for k in ("tv", "tv_bwd")):
+            raise AssertionError(f"{name}: TV launches per evaluation "
+                                 f"{per_eval[1]} are not one forward and one "
+                                 f"backward per level ({cfg.levels_num})")
         if name == "adam_highest" and rel > 1e-3:
             raise AssertionError(f"adam lane 0 ends {rel:.2e} from the "
                                  "single job at full float32 (rtol 1e-3)")

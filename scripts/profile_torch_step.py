@@ -19,8 +19,10 @@ batches 'unit'), then traces `--steps` steps of each with torch.profiler
   span runs from the first kernel's start to the last kernel's end on
   the device's timeline (the profiler's host overhead may lengthen it);
 - device ms per step by group: cuDNN/cuBLAS convolution and matmul
-  kernels, the port's own kernels (gram, gram_bwd, tv), and the rest
-  (elementwise, reductions, copies);
+  kernels, the port's own kernels (gram, gram_bwd, tv, tv_bwd), and the
+  rest (elementwise, reductions, copies);
+- kernel_launches_per_step: the CUDA kernels the traced window ran (its
+  kernel events, memory copies and sets left out) over its steps;
 - the ten kernels with the most device time.
 
 Needs a CUDA device; exits 1 without one.
@@ -39,9 +41,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # substrings of the port's kernel symbols (kernels/csrc/*.cu; the templated
-# tensor-core kernels of gram.cu and gram_bwd.cu keep these names)
+# kernels keep these names); tv_partial_kernel and tv_final_kernel are the
+# two-launch TV forward of older checkouts, so that one of them profiled
+# beside this one groups its TV time alike
 OWN = {"gram_partial_kernel": "gram", "gram_reduce_kernel": "gram",
-       "gram_bwd_kernel": "gram_bwd", "tv_partial_kernel": "tv",
+       "gram_bwd_kernel": "gram_bwd", "tv_fwd_kernel": "tv",
+       "tv_bwd_kernel": "tv_bwd", "tv_partial_kernel": "tv",
        "tv_final_kernel": "tv", "conv3x3_relu_kernel": "conv_relu"}
 LIBRARY = ("conv", "cudnn", "xmma", "gemm", "sm90", "sm80", "cutlass",
            "implicit", "winograd", "fft")
@@ -84,14 +89,17 @@ def profile(job, steps: int, warmup: int):
             next(it)
         torch.cuda.synchronize()
     groups = {"cudnn_cublas": 0.0, "gram": 0.0, "gram_bwd": 0.0, "tv": 0.0,
-              "conv_relu": 0.0, "other": 0.0}
+              "tv_bwd": 0.0, "conv_relu": 0.0, "other": 0.0}
     kernels = []
+    launches = 0
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         groups[_group(evt.key)] += us / 1e3
         kernels.append((us / 1e3, evt.count, evt.key))
+        if not evt.key.startswith(("Memcpy", "Memset")):
+            launches += evt.count
     busy_ms = sum(groups.values())
     # the traced window's span on the device's timeline, first kernel
     # start to last kernel end: busy and span come from the same window
@@ -105,6 +113,7 @@ def profile(job, steps: int, warmup: int):
         device_span_ms_per_step=span_ms / steps,
         device_idle_share=1.0 - busy_ms / span_ms,
         device_ms_per_step={k: v / steps for k, v in groups.items()},
+        kernel_launches_per_step=launches / steps,
         top_kernels=[dict(name=k[:90], ms_per_step=ms / steps,
                           calls_per_step=n / steps)
                      for ms, n, k in kernels[:10]])

@@ -22,7 +22,8 @@ from artstyletransfer_tpu_torch.kernels import gram as kgram
 from artstyletransfer_tpu_torch.kernels import tv as ktv
 from artstyletransfer_tpu_torch.ops.conv_relu import conv3x3_relu
 from artstyletransfer_tpu_torch.ops.gram import gram_matrix
-from artstyletransfer_tpu_torch.ops.tv import total_variation
+from artstyletransfer_tpu_torch.ops.tv import (lane_total_variation,
+                                               total_variation)
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
@@ -120,8 +121,12 @@ def test_cpu_runs_are_not_counted_as_launches(rng):
     x = torch.from_numpy(rng.standard_normal((1, 4, 4, 64)).astype(np.float32))
     gram_matrix(x)
     total_variation(x[..., :3].contiguous())
+    y = x[..., :3].contiguous().requires_grad_(True)
+    lane_total_variation(y).sum().backward()
+    assert y.grad is not None
     conv3x3_relu(x, torch.zeros((3, 3, 64, 8)), torch.zeros((8,)))
-    assert LAUNCHES == {"gram": 0, "gram_bwd": 0, "tv": 0, "conv_relu": 0}
+    assert LAUNCHES == {"gram": 0, "gram_bwd": 0, "tv": 0, "tv_bwd": 0,
+                        "conv_relu": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -137,7 +142,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         kgram.gram_cuda(torch.zeros((64, 64)), 1.0)
     with pytest.raises(ValueError):
-        ktv.tv_sums_cuda(torch.zeros((1, 4, 4, 3)))
+        ktv.tv_cuda(torch.zeros((1, 4, 4, 3)))
 
 
 def test_gram_split_plan_covers_rows():
