@@ -61,10 +61,10 @@ class Config:
     lbfgs_direction: str = "matrix"     # 'matrix' | 'loop' two-loop form
     lbfgs_t_init: str = "lr"            # first line-search trial: 'lr' |
                                         # 'unit'
-    lbfgs_grams: str = "recompute"      # 'recompute' ('incremental' is not
-                                        # ported yet and raises)
-    lbfgs_state_dtype: str = "float32"  # 'float32' ('bfloat16' is not
-                                        # ported yet and raises)
+    lbfgs_grams: str = "recompute"      # 'recompute' | 'incremental'
+                                        # (S Yᵀ / Y Yᵀ carried in the state)
+    lbfgs_state_dtype: str = "float32"  # 'float32' | 'bfloat16' s/y
+                                        # history storage
 
     # --- engine knobs ---
     base_diameter: int = 256            # level-0 shortest side
@@ -172,14 +172,33 @@ def reference_equivalent_steps(config: Config, reference_iters: int) -> int:
     return reference_iters
 
 
-def production_config(base: Config | None = None) -> Config:
-    """The deployment default on CUDA: the config unchanged.
+def production_config(base: Config | None = None, device=None) -> Config:
+    """The deployment default on CUDA (device None: CUDA when a card is
+    visible); on the CPU the config unchanged.
 
-    The JAX package flips four settings on a TPU (bfloat16 compute, the
-    unit line-search opening, carried L-BFGS Grams, bfloat16 history);
-    none of them has been measured on the card, so none is applied here.
+    The JAX package flips four settings on a TPU. Decided on the card
+    (NVIDIA H100 80GB HBM3, 700.00 W; scripts/profile_torch_step.py
+    --t-init unit and chip_smoke.py's lbfgs_state phase, PERF.md §6 PR 8):
+    - carried L-BFGS Grams (lbfgs_grams='incremental', matrix direction):
+      applied. The 8-lane step's device busy time fell 66.6 -> 33.5 ms:
+      the recompute's two bmm took 36.2 ms of cuBLAS per step, the
+      refresh's GEMVs 3.2. An explicit --lbfgs-grams recompute opts out.
+    - bfloat16 history: not applied. Its final loss was within 0.01% of
+      float32 history, but its step was not faster: at 8 lanes 33.2
+      against 32.7 ms of device time per evaluation and 42.0-42.3 against
+      38.7-40.0 ms of wall, at one lane 20.1-23.2 against 16.5-17.3 ms.
+    - bfloat16 compute and the unit line-search opening: not measured
+      here, not applied.
     """
-    return base if base is not None else Config()
+    cfg = base if base is not None else Config()
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    if dev.type != "cuda":
+        return cfg
+    if (cfg.optimizer == "lbfgs" and cfg.lbfgs_direction == "matrix"
+            and cfg.lbfgs_grams == "recompute"):
+        cfg = dataclasses.replace(cfg, lbfgs_grams="incremental")
+    return cfg
 
 
 _TF32 = {"default": True, "high": True, "highest": False}

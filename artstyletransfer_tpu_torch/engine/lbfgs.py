@@ -28,12 +28,23 @@ runs them at precision=HIGHEST), and the host reads (f, g.d) of all lanes
 at once, one read per round. The
 single-job forms (``LbfgsState``, ``init_state``, ``lbfgs_step``) are the
 B = 1 view of the lane forms.
+
+Two state options of the JAX package (its TPU production settings):
+- carried Grams (``track_grams``, config ``lbfgs_grams='incremental'``):
+  S Yᵀ and Y Yᵀ live in the state and each stored pair refreshes one row
+  and column of them (``_update_grams``) instead of the matrix direction
+  recomputing both from the (m, n) buffers every step;
+- bfloat16 history (``state_dtype='bfloat16'``): the s/y pairs are
+  quantised once when stored; rho, the Grams, g and the direction stay
+  float32, and every contraction against the buffers accumulates in
+  float32 and returns float32 (``_bmm_f32``), as the JAX package's
+  ``preferred_element_type=float32`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,42 +71,72 @@ class LbfgsState:
     g: torch.Tensor       # (n,)   gradient at the current point
     n_evals: int          # cumulative loss/grad evaluations
     n_iter: int           # completed lbfgs_step calls (torch n_iter)
+    sy_gram: Optional[torch.Tensor] = None  # (m, m) carried S Yᵀ, or None
+    yy_gram: Optional[torch.Tensor] = None  # (m, m) carried Y Yᵀ, or None
 
 
-def _check_ported(track_grams: bool, state_dtype) -> None:
-    if track_grams:
-        raise NotImplementedError(
-            "lbfgs_grams='incremental' is not ported yet")
-    if state_dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError(
-            "lbfgs_state_dtype='bfloat16' is not ported yet")
+def history_dtype(state_dtype) -> torch.dtype:
+    """The storage dtype of the s/y history buffers: float32 (None, the
+    default) or bfloat16."""
+    if state_dtype in (None, "float32", torch.float32):
+        return torch.float32
+    if state_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unknown lbfgs state dtype {state_dtype!r}; "
+                     "expected 'float32' or 'bfloat16'")
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane a @ b, accumulated in float32 and returned in float32
+    (the JAX package's preferred_element_type=float32). float32 operands
+    take a plain bmm; bfloat16 ones (the history buffers and the operands
+    quantised against them) take bmm's float32 output dtype on the card,
+    which reads the buffers as they are stored, and on the CPU are
+    promoted to float32 first (the product of two bfloat16 values is exact
+    in float32)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    if a.device.type != "cpu":
+        raise RuntimeError(f"no bfloat16 contraction on {a.device}")
+    return torch.bmm(a.float(), b.float())
 
 
 def _two_loop_direction_loop(g: torch.Tensor, state: LbfgsState) -> torch.Tensor:
     """d = -H_k g via the textbook two-loop recursion (newest -> oldest,
-    then oldest -> newest), on the device."""
+    then oldest -> newest), on the device. bfloat16 rows are promoted
+    against the float32 g and q (g itself is not quantised), as in the
+    JAX package's loop form."""
     m = state.s_hist.shape[0]
     cnt = state.count
     k = min(cnt, m)
+
+    def s_row(i):
+        return state.s_hist[i].float()
+
+    def y_row(i):
+        return state.y_hist[i].float()
+
     q = g
     alphas = {}
     for j in range(k):
         idx = (cnt - 1 - j) % m
-        a = state.rho[idx] * torch.dot(state.s_hist[idx], q)
-        q = q - a * state.y_hist[idx]
+        a = state.rho[idx] * torch.dot(s_row(idx), q)
+        q = q - a * y_row(idx)
         alphas[idx] = a
     if cnt > 0:
         newest = (cnt - 1) % m
-        sy = torch.dot(state.s_hist[newest], state.y_hist[newest])
-        yy = torch.dot(state.y_hist[newest], state.y_hist[newest])
+        sy = torch.dot(s_row(newest), y_row(newest))
+        yy = torch.dot(y_row(newest), y_row(newest))
         gamma = sy / torch.clamp(yy, min=1e-20)
     else:
         gamma = 1.0
     r = gamma * q
     for j in range(k):
         idx = (cnt - k + j) % m
-        b = state.rho[idx] * torch.dot(state.y_hist[idx], r)
-        r = r + state.s_hist[idx] * (alphas[idx] - b)
+        b = state.rho[idx] * torch.dot(y_row(idx), r)
+        r = r + s_row(idx) * (alphas[idx] - b)
     return -r
 
 
@@ -254,14 +295,16 @@ class LaneLbfgsState:
     """LbfgsState with a leading lane axis; the host scalars become (B,)
     numpy arrays, and n_iter is shared (the lanes step together)."""
 
-    s_hist: torch.Tensor  # (B, m, n)
-    y_hist: torch.Tensor  # (B, m, n)
+    s_hist: torch.Tensor  # (B, m, n) float32 or bfloat16
+    y_hist: torch.Tensor  # (B, m, n) float32 or bfloat16
     rho: torch.Tensor     # (B, m)
     count: np.ndarray     # (B,) int64
     f: np.ndarray         # (B,) float32
     g: torch.Tensor       # (B, n)
     n_evals: np.ndarray   # (B,) int64
     n_iter: int
+    sy_gram: Optional[torch.Tensor] = None  # (B, m, m) carried S Yᵀ
+    yy_gram: Optional[torch.Tensor] = None  # (B, m, m) carried Y Yᵀ
 
     def select(self, lanes: Sequence[int]) -> None:
         """Keep (and repeat) the given lanes, in that order, in place."""
@@ -271,6 +314,9 @@ class LaneLbfgsState:
         self.y_hist = self.y_hist.index_select(0, idx)
         self.rho = self.rho.index_select(0, idx)
         self.g = self.g.index_select(0, idx)
+        if self.sy_gram is not None:
+            self.sy_gram = self.sy_gram.index_select(0, idx)
+            self.yy_gram = self.yy_gram.index_select(0, idx)
         self.count = self.count[lanes]
         self.f = self.f[lanes]
         self.n_evals = self.n_evals[lanes]
@@ -282,31 +328,90 @@ def lane_init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,
     """Initial state of the (B, n) lanes x; one batched evaluation.
     loss_grad maps (B, n) to ((B,) losses, (B, n) gradients).
 
-    track_grams (carried S Yᵀ / Y Yᵀ) and a bfloat16 state_dtype are not
-    ported yet and raise NotImplementedError."""
-    _check_ported(track_grams, state_dtype)
+    track_grams: carry the (B, m, m) S Yᵀ / Y Yᵀ Grams, zeros until rows
+    are stored (the JAX package's init_state). state_dtype: storage dtype
+    of the (B, m, n) s/y buffers, float32 (None) or 'bfloat16'; rho and
+    the Grams stay float32."""
+    hdt = history_dtype(state_dtype)
     f, g = loss_grad(x)
     b, n = x.shape
+    grams = (torch.zeros((b, history, history), dtype=x.dtype,
+                         device=x.device) if track_grams else None)
     return LaneLbfgsState(
-        s_hist=torch.zeros((b, history, n), dtype=x.dtype, device=x.device),
-        y_hist=torch.zeros((b, history, n), dtype=x.dtype, device=x.device),
+        s_hist=torch.zeros((b, history, n), dtype=hdt, device=x.device),
+        y_hist=torch.zeros((b, history, n), dtype=hdt, device=x.device),
         rho=torch.zeros((b, history), dtype=x.dtype, device=x.device),
         count=np.zeros((b,), np.int64), f=f.cpu().numpy().astype(_f32),
-        g=g, n_evals=np.ones((b,), np.int64), n_iter=0)
+        g=g, n_evals=np.ones((b,), np.int64), n_iter=0,
+        sy_gram=grams, yy_gram=None if grams is None else grams.clone())
+
+
+def lane_state_specs(b: int, n: int, history: int, track_grams: bool,
+                     state_dtype=None) -> Dict[str, torch.Tensor]:
+    """{leaf name: a meta tensor of its shape and dtype} of a lane state,
+    the template a checkpoint of one is loaded against."""
+    hdt = history_dtype(state_dtype)
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = {"s_hist": meta((b, history, n), hdt),
+             "y_hist": meta((b, history, n), hdt),
+             "rho": meta((b, history))}
+    if track_grams:
+        specs["sy_gram"] = meta((b, history, history))
+        specs["yy_gram"] = meta((b, history, history))
+    specs.update(g=meta((b, n)), count=meta((b,), torch.int64),
+                 f=meta((b,)), n_evals=meta((b,), torch.int64),
+                 n_iter=meta((), torch.int64))
+    return specs
+
+
+def state_leaves(state: LaneLbfgsState) -> Dict[str, torch.Tensor]:
+    """The named leaves of a lane state (lane_state_specs's names)."""
+    leaves = {"s_hist": state.s_hist, "y_hist": state.y_hist,
+              "rho": state.rho}
+    if state.sy_gram is not None:
+        leaves.update(sy_gram=state.sy_gram, yy_gram=state.yy_gram)
+    leaves.update(g=state.g, count=torch.from_numpy(state.count.copy()),
+                  f=torch.from_numpy(state.f.copy()),
+                  n_evals=torch.from_numpy(state.n_evals.copy()),
+                  n_iter=torch.tensor(state.n_iter, dtype=torch.int64))
+    return leaves
+
+
+def state_from_leaves(leaves: Dict[str, torch.Tensor],
+                      device) -> LaneLbfgsState:
+    """The lane state that state_leaves gave, on `device`."""
+    def dev(name):
+        return leaves[name].to(device) if name in leaves else None
+
+    return LaneLbfgsState(
+        s_hist=dev("s_hist"), y_hist=dev("y_hist"), rho=dev("rho"),
+        count=leaves["count"].numpy().astype(np.int64),
+        f=leaves["f"].numpy().astype(_f32), g=dev("g"),
+        n_evals=leaves["n_evals"].numpy().astype(np.int64),
+        n_iter=int(leaves["n_iter"]), sy_gram=dev("sy_gram"),
+        yy_gram=dev("yy_gram"))
 
 
 def _lane_view(state: LaneLbfgsState, b: int) -> LbfgsState:
     return LbfgsState(state.s_hist[b], state.y_hist[b], state.rho[b],
                       int(state.count[b]), state.f[b], state.g[b],
-                      int(state.n_evals[b]), state.n_iter)
+                      int(state.n_evals[b]), state.n_iter,
+                      None if state.sy_gram is None else state.sy_gram[b],
+                      None if state.yy_gram is None else state.yy_gram[b])
 
 
 def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
                              impl: str = "matrix") -> torch.Tensor:
     """(B, n) directions. 'matrix': the history contractions of every lane
-    as batched matmuls over the buffer rows any lane has filled, one
-    device->host read, then each lane's host recursion
-    (_two_loop_coefficients). 'loop': the textbook loop form per lane."""
+    as batched matmuls over the buffer rows any lane has filled (S Yᵀ and
+    Y Yᵀ read from the state when it carries them), one device->host
+    read, then each lane's host recursion (_two_loop_coefficients).
+    With bfloat16 buffers g is quantised to bfloat16 before S g and Y g,
+    and the coefficients before the final combination, as in the JAX
+    package's matrix form. 'loop': the textbook loop form per lane."""
     if impl == "loop":
         return torch.stack([_two_loop_direction_loop(g[b], _lane_view(state, b))
                             for b in range(g.shape[0])])
@@ -318,11 +423,16 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
     if k == 0:
         return -g
     S, Y = state.s_hist[:, :k], state.y_hist[:, :k]
+    if state.sy_gram is not None:
+        P, Q = state.sy_gram[:, :k, :k], state.yy_gram[:, :k, :k]
+    else:
+        P = _bmm_f32(S, Y.transpose(1, 2))                     # S Yᵀ
+        Q = _bmm_f32(Y, Y.transpose(1, 2))                     # Y Yᵀ
+    g_h = g.to(S.dtype).unsqueeze(2)
     host = torch.cat([
-        torch.bmm(S, Y.transpose(1, 2)).reshape(nb, k * k),   # S Yᵀ
-        torch.bmm(Y, Y.transpose(1, 2)).reshape(nb, k * k),   # Y Yᵀ
-        torch.bmm(S, g.unsqueeze(2)).squeeze(2),              # S g
-        torch.bmm(Y, g.unsqueeze(2)).squeeze(2),              # Y g
+        P.reshape(nb, k * k), Q.reshape(nb, k * k),
+        _bmm_f32(S, g_h).squeeze(2),                           # S g
+        _bmm_f32(Y, g_h).squeeze(2),                           # Y g
     ], dim=1).cpu().numpy()
     rho = state.rho.cpu().numpy()
     P = np.zeros((m, m), _f32)
@@ -340,12 +450,12 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
         gamma[b], cs, cy = _two_loop_coefficients(P, Q, u, v, rho[b],
                                                   int(state.count[b]))
         coef_s[b], coef_y[b] = cs[:k], cy[:k]  # rows >= k are never valid
-    dev = g.device
+    dev, hdt = g.device, S.dtype
     r = (torch.from_numpy(gamma).to(dev).unsqueeze(1) * g
-         + torch.bmm(torch.from_numpy(coef_s).to(dev).unsqueeze(1),
-                     S).squeeze(1)
-         + torch.bmm(torch.from_numpy(coef_y).to(dev).unsqueeze(1),
-                     Y).squeeze(1))
+         + _bmm_f32(torch.from_numpy(coef_s).to(dev, hdt).unsqueeze(1),
+                    S).squeeze(1)
+         + _bmm_f32(torch.from_numpy(coef_y).to(dev, hdt).unsqueeze(1),
+                    Y).squeeze(1))
     return -r
 
 
@@ -428,18 +538,65 @@ def lane_lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor,
     s = torch.from_numpy(t).to(x.device).unsqueeze(1) * d
     x_new = x + s
     y = g_new - g0
-    ys = (y * s).sum(dim=1).cpu().numpy()
+    ys_dev = (y * s).sum(dim=1)
+    ys = ys_dev.cpu().numpy()
     # torch's curvature guard for the history update
-    for b in np.flatnonzero((ys > 1e-10) & ~skip):
-        idx = int(state.count[b] % m)
-        state.s_hist[b, idx] = s[b]
-        state.y_hist[b, idx] = y[b]
-        state.rho[b, idx] = float(_f32(1.0) / max(_f32(ys[b]), _f32(1e-20)))
-        state.count[b] += 1
+    store = np.flatnonzero((ys > 1e-10) & ~skip)
+    if store.size:
+        _store_pairs(state, store, s, y, ys, ys_dev)
     state.f, state.g = f_new, g_new
     state.n_evals += ls_evals
     state.n_iter += 1
     return x_new, state
+
+
+def _store_pairs(state: LaneLbfgsState, lanes: np.ndarray, s: torch.Tensor,
+                 y: torch.Tensor, ys: np.ndarray,
+                 ys_dev: torch.Tensor) -> None:
+    """Write each storing lane's pair into row count % m of its buffers
+    (quantised once, to the buffers' dtype), its rho, and, when the state
+    carries them, refresh that row and column of its Grams. One launch per
+    write for all the storing lanes together."""
+    m = state.rho.shape[1]
+    dev = s.device
+    idx_np = state.count[lanes] % m
+    lane_t = torch.from_numpy(lanes).to(dev)
+    idx_t = torch.from_numpy(idx_np).to(dev)
+    s_q = s.to(state.s_hist.dtype)
+    y_q = y.to(state.y_hist.dtype)
+    state.s_hist[lane_t, idx_t] = s_q.index_select(0, lane_t)
+    state.y_hist[lane_t, idx_t] = y_q.index_select(0, lane_t)
+    rho = (_f32(1.0) / np.maximum(ys[lanes].astype(_f32), _f32(1e-20)))
+    state.rho[lane_t, idx_t] = torch.from_numpy(rho.astype(_f32)).to(dev)
+    state.count[lanes] += 1
+    if state.sy_gram is not None:
+        k = int(min(state.count.max(), m))
+        _update_grams(state, lane_t, idx_t, s_q, y_q, ys_dev, k)
+
+
+def _update_grams(state: LaneLbfgsState, lane_t: torch.Tensor,
+                  idx_t: torch.Tensor, s_q: torch.Tensor, y_q: torch.Tensor,
+                  ys_dev: torch.Tensor, k: int) -> None:
+    """The JAX package's _update_grams for the storing lanes: after their
+    pairs went into rows idx of the buffers, row idx of P = S Yᵀ becomes
+    s_q · Y, column idx becomes S · y_q, row and column idx of Q = Y Yᵀ
+    become y_q · Y, and P[idx, idx] the step's own y·s (the float32 value
+    rho reads). Entries are replaced, never accumulated, so every entry
+    stays a dot of the current buffer rows; s_q and y_q are the pairs as
+    stored (bfloat16 when the buffers are). The products run over every
+    lane at once (three GEMVs over the k rows any lane has filled; rows
+    beyond them are zero) and only the storing lanes' rows and columns are
+    written."""
+    S, Y = state.s_hist[:, :k], state.y_hist[:, :k]
+    p_row = _bmm_f32(Y, s_q.unsqueeze(2)).squeeze(2)[lane_t]   # y_j · s_q
+    q_row = _bmm_f32(Y, y_q.unsqueeze(2)).squeeze(2)[lane_t]   # y_j · y_q
+    p_col = _bmm_f32(S, y_q.unsqueeze(2)).squeeze(2)[lane_t]   # s_j · y_q
+    P, Q = state.sy_gram, state.yy_gram
+    P[lane_t, idx_t, :k] = p_row
+    P[lane_t, :k, idx_t] = p_col
+    P[lane_t, idx_t, idx_t] = ys_dev[lane_t]
+    Q[lane_t, idx_t, :k] = q_row
+    Q[lane_t, :k, idx_t] = q_row
 
 
 # --------------------------------------------------------------------------
@@ -459,11 +616,13 @@ def _one_lane(loss_grad: LossGradFn) -> LossGradFn:
 
 def _as_lanes(state: LbfgsState) -> LaneLbfgsState:
     """A one-lane state whose tensors are views of `state`'s."""
+    grams = [None if t is None else t.unsqueeze(0)
+             for t in (state.sy_gram, state.yy_gram)]
     return LaneLbfgsState(
         state.s_hist.unsqueeze(0), state.y_hist.unsqueeze(0),
         state.rho.unsqueeze(0), np.array([state.count], np.int64),
         np.array([state.f], _f32), state.g.unsqueeze(0),
-        np.array([state.n_evals], np.int64), state.n_iter)
+        np.array([state.n_evals], np.int64), state.n_iter, *grams)
 
 
 def init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,

@@ -21,16 +21,19 @@ as (B, ...), every loss is a (B,) vector, and a lane's gradient is that of
 its own loss, since VGG couples no lanes. A single job is one lane, and
 parallel/batch.py builds the batched job on the same pieces.
 
-Not ported yet (a call that needs them raises NotImplementedError):
-checkpoint/resume and ``remat_levels``. ``pipeline_streaming`` (the JAX
-package's lookahead dispatch) is host scheduling only; the port streams
-sequentially, which yields the same values in the same order.
+``TransferJob.run`` checkpoints and resumes the whole optimization state
+(engine/checkpoint.py), as the JAX package's does. Not ported yet (it
+raises NotImplementedError): ``remat_levels``. ``pipeline_streaming`` (the
+JAX package's lookahead dispatch) is host scheduling only; the port
+streams sequentially, which yields the same values in the same order.
 """
 
 from __future__ import annotations
 
 import asyncio
-from typing import Iterator, List, Optional, Tuple
+import os
+import sys
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ from ..ops.gram import gram_matrix
 from ..ops.losses import level_loss
 from ..ops.resize import downscale2x
 from ..utils.image import prepare_img, unprepare_img
+from . import checkpoint as ckpt
 from . import lbfgs as lbfgs_mod
 from .init_pipeline import build_init_image
 from .pyramid import build_input_pyramids
@@ -70,11 +74,50 @@ def _raise_nonfinite_batch(bad, done, real_batch, cfg: Config) -> None:
         f"lr_start={cfg.lr_start})")
 
 
-def lbfgs_history_gb(cfg: Config, level_shapes) -> float:
-    """Device memory one job's L-BFGS s/y history buffers need, in GB
-    (float32 storage, the only one ported)."""
+# The JAX package's budget for the L-BFGS s/y history of a job or a batch
+# (half a 16 GB TPU chip), not yet measured on the card: above it a job
+# warns and a queue splits its groups (parallel/batch.py).
+LBFGS_HISTORY_BUDGET_GB = 8.0
+
+
+def lbfgs_history_gb(cfg: Config, level_shapes, batch: int = 1) -> float:
+    """Device memory the L-BFGS s/y history buffers of `batch` jobs need,
+    in GB; bfloat16 storage (cfg.lbfgs_state_dtype) halves it."""
     n_pixels = int(np.prod(level_shapes[0]))
-    return 2 * cfg.lbfgs_history * n_pixels * 4 / 1e9
+    bytes_per = 2 if cfg.lbfgs_state_dtype == "bfloat16" else 4
+    return 2 * cfg.lbfgs_history * n_pixels * bytes_per * batch / 1e9
+
+
+def warn_lbfgs_hbm(cfg: Config, level_shapes, batch: int = 1) -> bool:
+    """Print a stderr warning when the (batched) L-BFGS history exceeds
+    LBFGS_HISTORY_BUDGET_GB; returns whether it fired. One formula and
+    threshold for the single-job and batched sites."""
+    hist_gb = lbfgs_history_gb(cfg, level_shapes, batch)
+    if hist_gb <= LBFGS_HISTORY_BUDGET_GB:
+        return False
+    jobs = f"{batch} jobs x " if batch > 1 else ""
+    dt_hint = ("" if cfg.lbfgs_state_dtype == "bfloat16"
+               else "--lbfgs-state-dtype bfloat16 (halves it), ")
+    print(f"warning: L-BFGS history buffers need ~{hist_gb:.1f} GB of device "
+          f"memory ({jobs}history={cfg.lbfgs_history}); consider "
+          f"{dt_hint}--lbfgs-history 10, or a smaller batch/resolution",
+          file=sys.stderr)
+    return True
+
+
+def _config_key(cfg: Config, level_shapes) -> tuple:
+    """The engine config's fingerprint, stored in and checked against a
+    checkpoint: every field that changes the numerics of a step (the JAX
+    package's _config_key without its TPU-only fields: pool_impl,
+    use_pallas and the space mesh, which no port path reads)."""
+    return (tuple(level_shapes), cfg.content_weight, cfg.style_weight,
+            cfg.tv_weight, cfg.optimizer, cfg.compute_dtype,
+            cfg.conv_precision, cfg.use_relu,
+            cfg.stream_every, cfg.lr_start, cfg.lr_decay,
+            cfg.lr_decay_per_eval,
+            cfg.lbfgs_history, cfg.lbfgs_max_ls_steps, cfg.lbfgs_direction,
+            cfg.lbfgs_t_init, cfg.lbfgs_grams, cfg.lbfgs_state_dtype,
+            cfg.remat_levels, cfg.fused_style_bwd)
 
 
 def _check_supported(cfg: Config) -> None:
@@ -175,16 +218,34 @@ class _Adam:
     (torch Adam's defaults, reference neural_style_transfer.py:134).
     Elementwise, so it serves a (B, n) stack of lanes as it is: per-lane
     moments, one shared step counter (the JAX package's vmapped
-    ``batched_chunk``)."""
+    ``batched_chunk``). leaves: a checkpoint's state (leaf_specs's names)
+    to continue from instead of zeros."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, loss_grad, x: torch.Tensor, cfg: Config):
+    def __init__(self, loss_grad, x: torch.Tensor, cfg: Config,
+                 leaves: Optional[Dict[str, torch.Tensor]] = None):
         self.loss_grad = loss_grad
         self.cfg = cfg
-        self.mu = torch.zeros_like(x)
-        self.nu = torch.zeros_like(x)
-        self.count = 0
+        if leaves is None:
+            self.mu = torch.zeros_like(x)
+            self.nu = torch.zeros_like(x)
+            self.count = 0
+        else:
+            self.mu = leaves["mu"].to(x.device)
+            self.nu = leaves["nu"].to(x.device)
+            self.count = int(leaves["count"])
+
+    @staticmethod
+    def leaf_specs(cfg: Config, b: int, n: int) -> Dict[str, torch.Tensor]:
+        """{leaf name: meta tensor} of the state of b lanes of n values."""
+        return {"mu": torch.empty((b, n), device="meta"),
+                "nu": torch.empty((b, n), device="meta"),
+                "count": torch.empty((), dtype=torch.int64, device="meta")}
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        return {"mu": self.mu, "nu": self.nu,
+                "count": torch.tensor(self.count, dtype=torch.int64)}
 
     def step(self, x: torch.Tensor, step: int):
         f, g = self.loss_grad(x)
@@ -209,16 +270,36 @@ class _Lbfgs:
     """engine/lbfgs.py over a (B, n) stack of lanes, with the reference's
     per-evaluation lr decay: each lane keeps its own history, evaluation
     count and lr schedule (a single job is one lane). step returns the
-    (B,) losses as a float32 tensor on x's device."""
+    (B,) losses as a float32 tensor on x's device. leaves: a checkpoint's
+    state (leaf_specs's names) to continue from, with no evaluation."""
 
-    def __init__(self, loss_grad, x: torch.Tensor, cfg: Config):
+    def __init__(self, loss_grad, x: torch.Tensor, cfg: Config,
+                 leaves: Optional[Dict[str, torch.Tensor]] = None):
         self.loss_grad = loss_grad
         self.cfg = cfg
-        self.state = lbfgs_mod.lane_init_state(
-            loss_grad, x, cfg.lbfgs_history,
-            track_grams=(cfg.lbfgs_grams == "incremental"
-                         and cfg.lbfgs_direction == "matrix"),
-            state_dtype=cfg.lbfgs_state_dtype)
+        if leaves is None:
+            self.state = lbfgs_mod.lane_init_state(
+                loss_grad, x, cfg.lbfgs_history,
+                track_grams=self._track_grams(cfg),
+                state_dtype=cfg.lbfgs_state_dtype)
+        else:
+            self.state = lbfgs_mod.state_from_leaves(leaves, x.device)
+
+    @staticmethod
+    def _track_grams(cfg: Config) -> bool:
+        # the carried Grams serve the matrix direction only
+        return (cfg.lbfgs_grams == "incremental"
+                and cfg.lbfgs_direction == "matrix")
+
+    @classmethod
+    def leaf_specs(cls, cfg: Config, b: int, n: int) -> Dict[str, torch.Tensor]:
+        """{leaf name: meta tensor} of the state of b lanes of n values."""
+        return lbfgs_mod.lane_state_specs(b, n, cfg.lbfgs_history,
+                                          cls._track_grams(cfg),
+                                          cfg.lbfgs_state_dtype)
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        return lbfgs_mod.state_leaves(self.state)
 
     def step(self, x: torch.Tensor, step: int):
         cfg = self.cfg
@@ -265,6 +346,8 @@ class TransferJob:
             content, style, cfg.levels_num, cfg.base_diameter)
         self.level_shapes = [tuple(prepare_img(c).shape)
                              for c in content_levels]
+        if cfg.optimizer == "lbfgs":
+            warn_lbfgs_hbm(cfg, self.level_shapes)
 
         def on_device(img):
             return torch.from_numpy(prepare_img(img)).to(self.device)
@@ -325,28 +408,49 @@ class TransferJob:
         config.reference_equivalent_steps for a reference budget). The image
         is un-preprocessed ([0,1]-domain, unclipped).
 
+        checkpoint_path / checkpoint_every save the whole optimization
+        state (engine/checkpoint.py) at the first chunk boundary at least
+        checkpoint_every steps after the last save, and at the end;
+        resume=True continues from checkpoint_path when it exists (bit for
+        bit), and a checkpoint of a finished run yields its final image
+        once. A checkpoint written under another engine config or shape
+        raises ValueError.
+
         yield_images=False skips the device->host image copy (and the loss
         sync) on intermediate chunks: those yield (done, None, loss as a
         0-d device tensor); the final chunk always carries the image.
         report_level_losses=True stores per-level (total, content, style,
         tv) of every synced chunk in self.last_level_losses.
         cfg.stop_tol > 0 ends the run once the relative loss change over a
-        chunk is <= stop_tol.
+        chunk is <= stop_tol; its bookkeeping survives a resume.
         """
-        if checkpoint_path or checkpoint_every or resume:
-            raise NotImplementedError("checkpoint/resume is not ported yet")
         cfg = self.cfg
         iters = iters_num if iters_num is not None else cfg.iters_num
         chunk = stream_every if stream_every is not None else cfg.stream_every
         chunk = max(1, min(chunk, iters))
+        fp = str(_config_key(cfg, self.level_shapes))
+        opt_cls = _Adam if cfg.optimizer == "adam" else _Lbfgs
 
         x = self._x0.clone()
+        leaves, done, ck_extra = None, 0, {}
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            x_saved, leaves, done, ck_extra = ckpt.load_checkpoint(
+                checkpoint_path, opt_cls.leaf_specs(cfg, 1, x.shape[1]),
+                fingerprint=fp, with_extra=True)
+            x = x_saved.reshape(x.shape).to(self.device)
+            if done >= iters or ck_extra.get("converged"):
+                # a finished run (by budget or by stop_tol): its final
+                # image, and the loss at it
+                total, per_level = self._metrics(x)
+                if report_level_losses:
+                    self.last_level_losses = per_level
+                yield done, self._image(x), total
+                return
         with precision_gate(cfg.conv_precision):
-            opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
-                self._loss_grad, x, cfg)
-        done = 0
+            opt = opt_cls(self._loss_grad, x, cfg, leaves)
+        last_saved = done
         check_stop = cfg.stop_tol > 0.0
-        f_prev = None
+        f_prev = ck_extra.get("f_prev")
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
                 k = min(chunk, iters - done)
@@ -369,6 +473,16 @@ class TransferJob:
                     f = float(f)
                     if cfg.nan_checks and not np.isfinite(f):
                         _raise_nonfinite(f, done, cfg)
+                if (checkpoint_path and checkpoint_every
+                        and (done - last_saved >= checkpoint_every
+                             or done >= iters or converged)):
+                    ckpt.save_checkpoint(
+                        checkpoint_path, x[0], opt.leaves(), done,
+                        fingerprint=fp,
+                        extra=({"f_prev": f_prev, "converged": converged}
+                               if check_stop else None))
+                    last_saved = done
+                if sync:
                     img = self._image(x)
                     if report_level_losses:
                         _total, self.last_level_losses = self._metrics(x)

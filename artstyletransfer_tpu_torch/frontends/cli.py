@@ -3,6 +3,8 @@
 The port of the JAX package's ``astt`` CLI (frontends/cli.py), with the
 flags this package's engine implements plus --device (default cuda; the
 run raises if no card is visible and --device cpu was not given).
+--checkpoint FILE [--checkpoint-every N] [--resume] saves and resumes the
+job's whole optimization state.
 
   python -m artstyletransfer_tpu_torch.frontends.cli \\
       --content bird.jpg --style cubism2.jpg --output out.jpg
@@ -80,6 +82,17 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lbfgs-t-init", choices=["lr", "unit"], default=None,
                    help="line search's first trial step: lr = torch parity; "
                         "unit = t=1 once history exists")
+    p.add_argument("--lbfgs-grams", choices=["recompute", "incremental"],
+                   default=None,
+                   help="matrix direction's S Yᵀ / Y Yᵀ: recompute every "
+                        "step, or carry them in the optimizer state and "
+                        "refresh one row and column per stored pair")
+    p.add_argument("--lbfgs-state-dtype", choices=["float32", "bfloat16"],
+                   default=None,
+                   help="storage dtype of the (m, n) L-BFGS history: "
+                        "float32 (default) or bfloat16 (pairs quantised "
+                        "when stored, float32 accumulation; halves the "
+                        "history's memory)")
     p.add_argument("--lr-start", type=float, default=None,
                    help=f"initial learning rate (default {d.lr_start})")
     p.add_argument("--lr-decay", type=float, default=None,
@@ -125,6 +138,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-trace", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run "
                         "to DIR")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file; combine with --checkpoint-every "
+                        "and --resume")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="steps between checkpoints (default: "
+                        "--stream-every)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint if it exists")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -143,6 +164,8 @@ _FLAG_FIELDS = {
     "lbfgs_max_ls_steps": "lbfgs_max_ls_steps",
     "lbfgs_direction": "lbfgs_direction",
     "lbfgs_t_init": "lbfgs_t_init",
+    "lbfgs_grams": "lbfgs_grams",
+    "lbfgs_state_dtype": "lbfgs_state_dtype",
     "lr_start": "lr_start", "lr_decay": "lr_decay",
     "lr_decay_per_eval": "lr_decay_per_eval",
     "seed": "seed", "demo_normal_noise": "demo_normal_noise",
@@ -153,11 +176,18 @@ _FLAG_FIELDS = {
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
+    """The preset, then the flags, then production_config for the run's
+    device; an explicit --lbfgs-grams (the field production_config sets)
+    wins over it."""
     cfg = PRESETS[args.preset] if args.preset else Config()
     overrides = {field: getattr(args, flag)
                  for flag, field in _FLAG_FIELDS.items()
                  if getattr(args, flag) is not None}
-    return production_config(dataclasses.replace(cfg, **overrides))
+    cfg = production_config(dataclasses.replace(cfg, **overrides),
+                            device=args.device)
+    if args.lbfgs_grams is not None:
+        cfg = dataclasses.replace(cfg, lbfgs_grams=args.lbfgs_grams)
+    return cfg
 
 
 def _load_params(args):
@@ -168,8 +198,10 @@ def _load_params(args):
     return load_vgg19_params(args.weights)
 
 
-def run_job_direct(args: argparse.Namespace, cfg: Config) -> np.ndarray:
-    """TransferJob without the Executor, printing per-level losses."""
+def run_job_checkpointed(args: argparse.Namespace,
+                         cfg: Config) -> np.ndarray:
+    """TransferJob without the Executor: the path for --checkpoint (and
+    --verbose-losses, which prints per-level losses)."""
     from ..engine.transfer import TransferJob
     from ..utils.metrics import MetricsLogger, Throughput
 
@@ -179,14 +211,19 @@ def run_job_direct(args: argparse.Namespace, cfg: Config) -> np.ndarray:
     with MetricsLogger(args.metrics) as metrics:
         tp = Throughput()
         tp.tick(0)
-        for done, img, loss in job.run(report_level_losses=True):
+        for done, img, loss in job.run(
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every or cfg.stream_every,
+                resume=args.resume,
+                report_level_losses=args.verbose_losses):
             sps = tp.tick(done)
             metrics.log("chunk", step=done, loss=float(loss),
                         steps_per_sec=round(sps, 4) if sps else None,
                         percent=done / cfg.iters_num * 100.0)
             if not args.quiet:
                 print(f"step {done}/{cfg.iters_num} loss {loss:.4e}")
-                for i, (lt, lc, ls, ltv) in enumerate(job.last_level_losses):
+                for i, (lt, lc, ls, ltv) in enumerate(
+                        job.last_level_losses or ()):
                     print(f" - level {i} | level loss={lt:.3e}, "
                           f"content_loss={cfg.content_weight * lc:.3e}, "
                           f"style loss={cfg.style_weight * ls:.3e}, "
@@ -239,8 +276,8 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     with profile_trace(args.profile_trace):
-        if args.verbose_losses:
-            img = run_job_direct(args, cfg)
+        if args.checkpoint or args.verbose_losses:
+            img = run_job_checkpointed(args, cfg)
         else:
             img = asyncio.run(run_job(args, cfg))
     if img is None:

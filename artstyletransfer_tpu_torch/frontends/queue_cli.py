@@ -20,8 +20,10 @@ Manifest: JSONL, one job per line:
 Every engine/config flag of the port's CLI is accepted, plus --device
 (default cuda; the run raises if no card is visible and --device cpu was
 not given). The queue runs on one card: the JAX package's --mesh (job
-placement over several chips) is not ported yet, and --space > 1 and
---checkpoint-dir exit with an error. Failed jobs are reported on stderr and in the exit code;
+placement over several chips) is not ported yet, and --space > 1 exits
+with an error. --checkpoint-dir [--checkpoint-every N] [--resume] keeps
+one checkpoint per group and resumes the same queue from them. Failed
+jobs are reported on stderr and in the exit code;
 completed images land in --output-dir/<id>.jpg. Reading and writing
 images needs OpenCV (utils/image.py).
 """
@@ -73,9 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="VGG19 weights .npz; default: env "
                         "ASTT_VGG19_WEIGHTS or the seeded init")
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
-                   help="crash recovery (not ported yet)")
+                   help="crash recovery: one checkpoint per group in DIR")
     p.add_argument("--checkpoint-every", type=int, default=None,
-                   help="steps between checkpoints (not ported yet)")
+                   help="steps between checkpoints (default: "
+                        "--stream-every)")
     p.add_argument("--resume", action="store_true",
                    help="resume the same queue from --checkpoint-dir")
     p.add_argument("--retries", type=int, default=0, metavar="N",
@@ -143,9 +146,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         parser.error("--resume requires --checkpoint-dir")
-    if args.checkpoint_dir or args.checkpoint_every:
-        parser.error("--checkpoint-dir/--checkpoint-every: queue checkpoints "
-                     "are not ported yet")
     if args.space > 1:
         parser.error("--space > 1: sharding one job over several cards is "
                      "not ported")
@@ -181,6 +181,8 @@ def main(argv=None) -> int:
             canonicalize_styles=args.canonicalize_styles,
             canonicalize_contents=args.canonicalize_contents,
             stream_images=False,  # final images only — no per-chunk copy
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
             retries=args.retries, device=args.device)
         failures = {**load_failures, **failures}
 

@@ -15,17 +15,21 @@ style shapes across jobs. ``bucket_jobs`` groups an arbitrary job queue
 into such buckets; the canonicalize helpers collapse arbitrary inputs into
 a few aspect buckets.
 
-Not ported yet (they raise NotImplementedError): checkpoint/resume (waits
-for engine/checkpoint.py), a device mesh (job placement over several
-cards) and space sharding (a GSPMD feature of the JAX package).
+A batch checkpoints and resumes as a whole (engine/checkpoint.py), in the
+middle of a convergence shrink too, and ``run_job_queue`` keeps one
+checkpoint per group. Not ported yet (they raise NotImplementedError): a
+device mesh (job placement over several cards) and space sharding (a
+GSPMD feature of the JAX package).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import sys
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +37,12 @@ import torch
 from ..config import Config, precision_gate, resolve_device
 from ..engine.init_pipeline import build_init_image
 from ..engine.pyramid import build_input_pyramids, level_shape
-from ..engine.transfer import (_Adam, _Lbfgs, _check_supported,
-                               _compute_targets, _make_pyramid_loss,
-                               _raise_nonfinite_batch, lbfgs_history_gb)
+from ..engine import checkpoint as ckpt
+from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, _Adam, _Lbfgs,
+                               _check_supported, _compute_targets,
+                               _config_key, _make_pyramid_loss,
+                               _raise_nonfinite_batch, lbfgs_history_gb,
+                               warn_lbfgs_hbm)
 from ..models.weights import load_vgg19_params, params_from_jax
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
@@ -139,6 +146,8 @@ class BatchedTransferJob:
             x0.append(prepare_img(init_img).reshape(-1))
 
         self.level_shapes = [tuple(arr.shape) for arr in c_stack[0]]
+        if cfg.optimizer == "lbfgs":
+            warn_lbfgs_hbm(cfg, self.level_shapes, self.batch)
 
         def lanes_on_device(stack, lvl):
             return torch.from_numpy(np.concatenate(
@@ -189,13 +198,22 @@ class BatchedTransferJob:
         and the remaining lanes re-form at shrink_target's size by
         index_select on every state tensor; without it the batch stops
         once every job has converged.
+
+        checkpoint_path / checkpoint_every / resume: as TransferJob.run,
+        for the whole batch. After a shrink the file holds the live lanes;
+        its extra carries the lane composition, the stop bookkeeping and
+        the frozen jobs' losses, its aux their frozen rows, so a resume
+        continues at the shrunken size bit for bit.
         """
-        if checkpoint_path or checkpoint_every or resume:
-            raise NotImplementedError("checkpoint/resume is not ported yet")
         cfg = self.cfg
         iters = iters_num if iters_num is not None else cfg.iters_num
         chunk = stream_every if stream_every is not None else cfg.stream_every
         chunk = max(1, min(chunk, iters))
+        # the construction batch size keys the fingerprint; a shrunken
+        # state's own size rides in the extra's lane composition
+        fp = str(("batched", self.batch)
+                 + _config_key(cfg, self.level_shapes))
+        opt_cls = _Adam if cfg.optimizer == "adam" else _Lbfgs
 
         targets = self.targets  # shrinking selects its lanes
 
@@ -203,9 +221,6 @@ class BatchedTransferJob:
             return self._loss_grad(x, targets)
 
         x = self._x0.clone()
-        with precision_gate(cfg.conv_precision):
-            opt = (_Adam if cfg.optimizer == "adam" else _Lbfgs)(
-                loss_grad, x, cfg)
         done = 0
         top = self.level_shapes[0]  # (1, H, W, 3) per job
         check_stop = cfg.stop_tol > 0.0
@@ -214,6 +229,11 @@ class BatchedTransferJob:
         lane_orig: List[Optional[int]] = (
             list(range(self.real_batch))
             + [None] * (self.batch - self.real_batch))
+        # lane -> the job whose targets the lane carries (padding replicas
+        # carry the job they copy): what a resume selects the targets by
+        lane_src: List[int] = (
+            list(range(self.real_batch))
+            + [self.real_batch - 1] * (self.batch - self.real_batch))
         finished: Dict[int, Tuple[np.ndarray, float]] = {}  # orig -> row, loss
         f_prev: Dict[int, float] = {}  # orig -> last chunk's loss
         # convergence latches per job: once a job's chunk change dips under
@@ -246,6 +266,57 @@ class BatchedTransferJob:
                 bad = np.flatnonzero(~np.isfinite(losses_k)).tolist()
                 _raise_nonfinite_batch(bad, done_k, self.real_batch, cfg)
             return done_k, imgs_k, losses_k
+
+        def save(converged):
+            extra: Optional[Dict[str, Any]] = None
+            aux = None
+            if check_stop:
+                # JSON keys are strings; f_prev's int keys restore below
+                extra = {"f_prev": {str(k): v for k, v in f_prev.items()},
+                         "latched": sorted(latched), "converged": converged}
+            if shrink:
+                extra.update(lane_orig=lane_orig, lane_src=lane_src,
+                             finished=[[orig, loss] for orig, (_row, loss)
+                                       in sorted(finished.items())])
+                if finished:
+                    aux = {"finished_rows": np.stack(
+                        [row for _o, (row, _l) in sorted(finished.items())])}
+            ckpt.save_checkpoint(checkpoint_path, x, opt.leaves(), done,
+                                 fingerprint=fp, extra=extra, aux=aux)
+
+        leaves = None
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            # a shrunken batch's size is only known from the file's extra
+            _step, peek = ckpt.peek_checkpoint_meta(checkpoint_path)
+            if peek.get("lane_orig") is not None:
+                lane_orig = [None if v is None else int(v)
+                             for v in peek["lane_orig"]]
+                lane_src = [int(v) for v in peek["lane_src"]]
+            cur = len(lane_orig)
+            x_saved, leaves, done, ck_extra, ck_aux = ckpt.load_checkpoint(
+                checkpoint_path, opt_cls.leaf_specs(cfg, cur, x.shape[1]),
+                fingerprint=fp, with_extra=True, with_aux=True)
+            x = x_saved.to(self.device)
+            f_prev = {int(k): v
+                      for k, v in ck_extra.get("f_prev", {}).items()}
+            latched = set(ck_extra.get("latched", ()))
+            for i, (orig, loss) in enumerate(ck_extra.get("finished", [])):
+                finished[int(orig)] = (ck_aux["finished_rows"][i].numpy(),
+                                       float(loss))
+            if cur != self.batch:
+                targets = _select_targets(
+                    self.targets, torch.as_tensor(lane_src, dtype=torch.long,
+                                                  device=self.device))
+            if done >= iters or ck_extra.get("converged"):
+                # a finished batch: its final images, and the live lanes'
+                # losses at them beside the frozen jobs' own
+                with precision_gate(cfg.conv_precision), torch.no_grad():
+                    f_live, _ = self._loss_fn(self.params, targets, x)
+                yield materialize(done, x, f_live)
+                return
+        with precision_gate(cfg.conv_precision):
+            opt = opt_cls(loss_grad, x, cfg, leaves)
+        last_saved = done
 
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
@@ -307,6 +378,12 @@ class BatchedTransferJob:
                             f_np = f_np[sel]
                             lane_orig = ([lane_orig[ln] for ln in still]
                                          + [None] * (tgt - len(still)))
+                            lane_src = [lane_src[ln] for ln in sel]
+                if (checkpoint_path and checkpoint_every
+                        and (done - last_saved >= checkpoint_every
+                             or done >= iters or converged)):
+                    save(converged)
+                    last_saved = done
                 if yield_images or done >= iters or converged:
                     out = materialize(done, x, f)
                 elif f_np is not None:
@@ -400,24 +477,23 @@ def resolve_batch_policy(cfg: Config, batch_policy: str = "auto") -> str:
     return "batched"
 
 
-# The JAX package's values, not yet measured on this card: the batch size
-# past which job-steps/s stopped improving on one TPU chip, and its budget
-# for the L-BFGS s/y history across a batch.
+# The JAX package's value, not yet measured on this card: the batch size
+# past which job-steps/s stopped improving on one TPU chip. The history
+# budget is engine/transfer.py's LBFGS_HISTORY_BUDGET_GB.
 _SATURATION_BATCH = 32
-_LBFGS_HISTORY_BUDGET_GB = 8.0
 
 
 def max_jobs_per_batch(cfg: Config, content_shape: tuple) -> int:
     """Memory-aware cap on jobs per batch for one bucket: the L-BFGS
-    history pairs (2 * history * n_pixels float32 per job) against the
-    history budget, and the saturation batch."""
+    history pairs (2 * history * n_pixels values per job, 4 or 2 bytes
+    each) against the history budget, and the saturation batch."""
     cap = _SATURATION_BATCH
     if cfg.optimizer == "lbfgs":
         h, w = level_shape(content_shape[0], content_shape[1],
                            cfg.levels_num - 1, cfg.base_diameter)
         per_job_gb = lbfgs_history_gb(cfg, [(1, h, w, 3)])
         if per_job_gb > 0:
-            cap = min(cap, max(1, int(_LBFGS_HISTORY_BUDGET_GB / per_job_gb)))
+            cap = min(cap, max(1, int(LBFGS_HISTORY_BUDGET_GB / per_job_gb)))
     return cap
 
 
@@ -500,14 +576,30 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     extra times after retry_delay_s. progress(task_id, percent, image,
     loss) is called per job and chunk. Runs on CUDA unless device='cpu'.
 
-    checkpoint_dir / checkpoint_every / resume, a mesh and shard_space are
-    not ported yet and raise NotImplementedError.
+    checkpoint_dir: each group checkpoints its whole batch every
+    checkpoint_every steps (default stream_every) to
+    `<dir>/queue_<sha1 of the group's task ids>.ckpt`. resume=True picks
+    every group of the same queue up from its file (a finished group
+    returns its images without running again); without it a file left by
+    an earlier run is removed first. A retry resumes from the group's last
+    save. A mesh and shard_space are not ported yet and raise
+    NotImplementedError.
     """
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError(
-            "queue checkpoints are not ported yet (engine/checkpoint.py)")
     _not_ported(mesh, shard_space)
     dev = resolve_device(device)
+    if checkpoint_dir is not None and checkpoint_every is None:
+        checkpoint_every = cfg.stream_every  # the CLI's default too
+    if checkpoint_dir is not None and cfg.optimizer == "lbfgs" and jobs:
+        # a save copies the whole L-BFGS state to the host and to disk
+        h0, w0 = level_shape(jobs[0][1].shape[0], jobs[0][1].shape[1],
+                             cfg.levels_num - 1, cfg.base_diameter)
+        state_gb = lbfgs_history_gb(cfg, [(1, h0, w0, 3)])
+        if state_gb > 1.0 and checkpoint_every <= 5 * cfg.stream_every:
+            print(f"warning: each checkpoint save copies ~{state_gb:.1f} GB "
+                  f"of L-BFGS state per job; at --checkpoint-every "
+                  f"{checkpoint_every} that dominates the run. Consider "
+                  f"--checkpoint-every {max(200, 20 * cfg.stream_every)} "
+                  f"or --lbfgs-history 10.", file=sys.stderr)
     if canonicalize_contents:
         jobs = [(tid, canonicalize_content(c, cfg), s) for tid, c, s in jobs]
     if canonicalize_styles:
@@ -522,6 +614,15 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
         groups = [bucket[i:i + cap] for i in range(0, len(bucket), cap)]
         for group in groups:
             ids = [j[0] for j in group]
+            ckpt_path = None
+            if checkpoint_dir is not None:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                tag = hashlib.sha1(",".join(ids).encode()).hexdigest()[:16]
+                ckpt_path = os.path.join(checkpoint_dir, f"queue_{tag}.ckpt")
+                if not resume and os.path.exists(ckpt_path):
+                    # a file of an earlier run: a retry below resumes, and
+                    # must not load it
+                    os.remove(ckpt_path)
             pad_to = None
             if pad_batches and policy != "sequential":
                 pad_to = min(cap, 1 << (len(group) - 1).bit_length())
@@ -541,7 +642,11 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
                         params=params, pad_batch_to=pad_to, device=dev)
                     imgs = None
                     for done, imgs, losses in batch.run(
-                            yield_images=stream_images):
+                            yield_images=stream_images,
+                            checkpoint_path=ckpt_path,
+                            checkpoint_every=checkpoint_every,
+                            # a retry resumes from the last save
+                            resume=resume or attempt > 0):
                         if progress is not None:
                             pct = done / cfg.iters_num * 100.0
                             # one device->host read for the whole batch

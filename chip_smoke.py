@@ -59,8 +59,30 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               reported beside each queue's). The fused conv kernel is not
               on any path (VGG runs on cuDNN, as on XLA in the JAX
               package): its launches there are 0.
+6. lbfgs_state — the main L-BFGS job (512 px, 2 levels, history 100) at
+              (recompute, float32), (incremental, float32) and
+              (incremental, bfloat16) L-BFGS state, and the 4-job
+              unit-opening L-BFGS queue at (incremental, bfloat16): steps/s,
+              peak memory and launches of each (counters zeroed before and
+              read after each run; every kernel of the path must launch),
+              losses finite and falling; the carried Grams of each
+              incremental job's final state (saved by a second run's
+              checkpoint) within 1e-5 of S Yᵀ and Y Yᵀ recomputed from its
+              buffers (largest difference over largest entry); the bf16
+              job's final loss beside the f32 job's; and the Gram
+              refresh's cuBLAS GEMV at 1 and 8 lanes, f32 and bf16 rows,
+              beside its bandwidth bound;
+7. resume   — a bf16 carried-Gram L-BFGS job runs 6 steps, twice without a
+              break, then with a checkpoint every 3 steps, stopped after
+              step 3 and resumed; the same with a 4-lane batch that
+              shrinks at step 2 (stop_tol, stop_shrink: two lanes hold a
+              black image, whose loss and gradient are exactly 0). The
+              loaded state must equal the saved one bit for bit, and the
+              resumed run the uninterrupted one: bit for bit when the two
+              uninterrupted runs agree bit for bit, else within twice
+              their spread (the record then names the cause).
 
-Each phase prints one JSON line. Any failure raises and exits non-zero;
+Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
 lines are the card's nvidia-smi line, the `kernels` summary and
 {"ok": true, "device": {...}}. All images are numpy arrays made from
@@ -1060,6 +1082,401 @@ def phase_queue():
     return paths
 
 
+STATE_SETTINGS = [("recompute", "float32"), ("incremental", "float32"),
+                  ("incremental", "bfloat16")]
+SCRATCH = os.path.join(ROOT, ".smoke_ckpt")  # gitignored; removed after use
+
+
+def lbfgs_cfg(**kw):
+    """The main path's L-BFGS job: 512 px, 2 levels, history 100, 25
+    line-search evaluations, 10 steps."""
+    from artstyletransfer_tpu_torch.config import Config
+
+    return Config(**{**dict(levels_num=2, base_diameter=256, iters_num=10,
+                            stream_every=5, optimizer="lbfgs"), **kw})
+
+
+def timed_run(it):
+    """Drain a run's chunks, synchronising at each: [(time, done, loss)]."""
+    import torch
+
+    stamps = []
+    for done, _img, loss in it:
+        torch.cuda.synchronize()
+        stamps.append((time.time(), done, float(loss)))
+    return stamps
+
+
+def gram_errors(path, cfg, n):
+    """The carried Grams of a finished job's checkpoint against S Yᵀ and
+    Y Yᵀ recomputed on the card from its buffers, in float32 and in
+    float64: the largest difference over the largest entry. With bfloat16
+    buffers P's diagonal holds y·s of the pair before it was quantised
+    (as in the JAX package), so it is compared apart."""
+    import torch
+
+    from artstyletransfer_tpu_torch.engine import checkpoint as ckpt
+    from artstyletransfer_tpu_torch.engine.transfer import _Lbfgs
+
+    _x, st, _step = ckpt.load_checkpoint(path, _Lbfgs.leaf_specs(cfg, 1, n))
+    k = int(min(int(st["count"].max()), cfg.lbfgs_history))
+    S = st["s_hist"][0, :k].cuda().float()
+    Y = st["y_hist"][0, :k].cuda().float()
+    out = {"k": k}
+    for name, carried, a, b in (("sy", st["sy_gram"][0, :k, :k], S, Y),
+                                ("yy", st["yy_gram"][0, :k, :k], Y, Y)):
+        carried = carried.cuda()
+        off = torch.ones_like(carried)
+        if name == "sy" and cfg.lbfgs_state_dtype == "bfloat16":
+            off.fill_diagonal_(0.0)
+        ref32 = a @ b.T
+        ref64 = a.double() @ b.double().T
+        scale = float((ref64 * off).abs().max())
+        out[name] = dict(
+            vs_f32=float(((carried - ref32) * off).abs().max()) / scale,
+            vs_f64=float(((carried.double() - ref64) * off).abs().max())
+            / scale,
+            recompute_vs_f64=float(((ref32.double() - ref64) * off)
+                                   .abs().max()) / scale)
+        if name == "sy" and cfg.lbfgs_state_dtype == "bfloat16":
+            diag = torch.diagonal(carried).double()
+            out[name]["diag_vs_quantised_rel"] = float(
+                ((diag - torch.diagonal(ref64)).abs()
+                 / torch.diagonal(ref64).abs()).max())
+    return out
+
+
+def history_gemv_rows():
+    """The Gram refresh's contraction, one (B, k, n)·(B, n, 1) product of
+    the history rows with a pair, as engine/lbfgs.py's _bmm_f32 runs it
+    (cuBLAS; bfloat16 rows through bmm's float32 output dtype) at 1 and 8
+    lanes, k = 10 and 20 filled rows of the 512 px level: ms per call on
+    the device's clock (cuda_ms: CUDA events around back-to-back calls;
+    not a kernel of the port, so not the profiler's kernel-time rule),
+    host ms per call, and the bound (the rows and the vector read once,
+    the products written once, over HBM bandwidth)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.engine.lbfgs import _bmm_f32
+
+    n = 512 * 512 * 3
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for lanes in (1, LANES):
+        for k in (10, 20):
+            for dtype in (torch.float32, torch.bfloat16):
+                hist = torch.randn((lanes, k, n), device="cuda",
+                                   generator=gen).to(dtype)
+                vec = torch.randn((lanes, n, 1), device="cuda",
+                                  generator=gen).to(dtype)
+                elem = hist.element_size()
+                bound_ms, _by = bound(lanes * (k * n + n) * elem
+                                      + lanes * k * 4, 2 * lanes * k * n,
+                                      "float32")
+
+                def fn(hist=hist, vec=vec):
+                    return _bmm_f32(hist, vec)
+
+                rec = dict(phase="lbfgs_state", run="gemv", lanes=lanes,
+                           k=k, dtype=str(dtype)[6:], ms=cuda_ms(fn),
+                           host_ms=host_ms(fn), bound_ms=bound_ms)
+                emit(rec)
+                rows.append(rec)
+                del hist, vec
+    return rows
+
+
+def phase_lbfgs_state():
+    """The main L-BFGS job at (recompute, float32), (incremental, float32)
+    and (incremental, bfloat16), and the 4-job unit-opening L-BFGS queue
+    at (incremental, bfloat16). Each run's counters are zeroed just before
+    it and read just after; every kernel of the path must have launched,
+    every loss be finite and falling. The carried Grams of each
+    incremental job's final state (a second run that saves it) must equal
+    S Yᵀ and Y Yᵀ recomputed from its buffers within 1e-5 of the largest
+    entry."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+
+    content, style = synthetic_pair()
+    params = init_vgg19_params(seed=0)
+    paths, finals = {}, {}
+    os.makedirs(SCRATCH, exist_ok=True)
+    try:
+        for grams, dtype in STATE_SETTINGS:
+            cfg = lbfgs_cfg(lbfgs_grams=grams, lbfgs_state_dtype=dtype)
+            job = TransferJob(content, style, cfg, params=params,
+                              device="cuda")
+            first = job.initial_loss()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()  # ---- this run of the path starts here ----
+            t0 = time.time()
+            stamps = timed_run(job.run())
+            launches = dict(LAUNCHES)  # ---- and ends here ----
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            name = f"lbfgs_state_{grams}_{dtype}"
+            paths[name] = launches
+            check_launches(name, launches)
+            (t_a, d_a, _), (t_b, d_b, last) = stamps[-2], stamps[-1]
+            rec = dict(phase="lbfgs_state", run="job", lbfgs_grams=grams,
+                       lbfgs_state_dtype=dtype, steps=cfg.iters_num,
+                       wall_s=stamps[-1][0] - t0,
+                       steps_per_s_last_chunk=(d_b - d_a) / (t_b - t_a),
+                       first_loss=first, losses=[v for _t, _d, v in stamps],
+                       peak_mem_gb=peak_gb, launches=launches)
+            finals[(grams, dtype)] = last
+            if grams == "incremental":
+                path = os.path.join(SCRATCH, f"{name}.ckpt")
+                list(TransferJob(content, style, cfg, params=params,
+                                 device="cuda").run(
+                    checkpoint_path=path, checkpoint_every=cfg.iters_num))
+                rec["grams"] = gram_errors(path, cfg, job._x0.shape[1])
+                os.remove(path)
+            emit(rec)
+            RECORD.setdefault("lbfgs_state", []).append(rec)
+            losses = [v for _t, _d, v in stamps]
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                    < first):
+                raise AssertionError(f"{name}: losses not finite and "
+                                     f"falling: {rec}")
+            for key in ("sy", "yy"):
+                if grams == "incremental" and not rec["grams"][key][
+                        "vs_f32"] <= 1e-5:
+                    raise AssertionError(f"{name}: carried {key} Gram "
+                                         f"{rec['grams'][key]}")
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    f32 = finals[("incremental", "float32")]
+    bf16 = finals[("incremental", "bfloat16")]
+    summary = dict(phase="lbfgs_state", run="final_loss_bf16_vs_f32",
+                   rel=bf16 / f32 - 1.0)
+    emit(summary)
+    RECORD.setdefault("lbfgs_state", []).append(summary)
+
+    _adam, lbfgs_jobs = queue_jobs()
+    cfg = lbfgs_cfg(lbfgs_t_init="unit", stream_every=2,
+                    lbfgs_grams="incremental", lbfgs_state_dtype="bfloat16")
+    results, runs_events, launches, walls, peak_gb = run_queue(
+        lbfgs_jobs, cfg, params)
+    paths["lbfgs_state_queue"] = launches
+    check_launches("lbfgs_state queue", launches)
+    lanes = {}
+    for tid, c, _s in lbfgs_jobs:
+        reported = [loss for _t, t2, _p, loss in runs_events[0] if t2 == tid]
+        lanes[tid] = dict(first_chunk_loss=reported[0],
+                          last_loss=reported[-1])
+        if not (np.isfinite(reported).all() and reported[-1] < reported[0]
+                and np.isfinite(results[tid]).all()):
+            raise AssertionError(f"lbfgs_state queue {tid}: {lanes[tid]}")
+    steps = len(lbfgs_jobs) * cfg.iters_num
+    rec = dict(phase="lbfgs_state", run="queue", lbfgs_grams="incremental",
+               lbfgs_state_dtype="bfloat16", jobs=len(lbfgs_jobs),
+               steps=cfg.iters_num, wall_s=walls,
+               job_steps_per_s=[steps / w for w in walls],
+               chunk_rates=[chunk_rates(lbfgs_jobs, ev, cfg)
+                            for ev in runs_events],
+               lanes=lanes, peak_mem_gb=peak_gb, launches=launches)
+    emit(rec)
+    RECORD.setdefault("lbfgs_state", []).append(rec)
+    RECORD["lbfgs_state"].extend(history_gemv_rows())
+    return paths
+
+
+def _host_copy(leaves):
+    import numpy as np
+
+    return {k: v.detach().cpu().clone() if hasattr(v, "detach")
+            else np.array(v) for k, v in leaves.items()}
+
+
+def checkpointed_run(make, every, stop_at, path):
+    """Run `make()`'s run with a checkpoint every `every` steps, keeping a
+    host copy of what each save wrote, and stop it (as a crash would)
+    after the chunk that ends at `stop_at`. Returns the copy of the last
+    save."""
+    from artstyletransfer_tpu_torch.engine import checkpoint as ckpt
+
+    real_save, saved = ckpt.save_checkpoint, {}
+
+    def keep(p, x, opt_state, step, **kw):
+        saved.clear()
+        saved.update(x=x.detach().cpu().clone(), step=step,
+                     leaves=_host_copy(opt_state),
+                     aux=_host_copy(kw.get("aux") or {}))
+        real_save(p, x, opt_state, step, **kw)
+
+    ckpt.save_checkpoint = keep
+    try:
+        it = make().run(checkpoint_path=path, checkpoint_every=every)
+        for done, _imgs, _losses in it:
+            if done >= stop_at:
+                break
+        it.close()
+    finally:
+        ckpt.save_checkpoint = real_save
+    return saved
+
+
+def same_as_saved(path, saved, specs):
+    """The file's x, leaves and aux equal what the run saved, bit for bit."""
+    import torch
+
+    from artstyletransfer_tpu_torch.engine import checkpoint as ckpt
+
+    x, leaves, step, _extra, aux = ckpt.load_checkpoint(
+        path, specs, with_extra=True, with_aux=True)
+    return (step == saved["step"] and torch.equal(x, saved["x"])
+            and all(torch.equal(leaves[k], v)
+                    for k, v in saved["leaves"].items())
+            and set(aux) == set(saved["aux"])
+            and all(torch.equal(aux[k], torch.as_tensor(v))
+                    for k, v in saved["aux"].items()))
+
+
+def resume_verdict(name, a, b, r):
+    """a, b: (images, losses) of two uninterrupted runs; r: the resumed
+    run's. Bit-equal when a and b are; else within twice their spread."""
+    import numpy as np
+
+    det = np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    rec = dict(uninterrupted_bit_equal=bool(det),
+               resumed_bit_equal=bool(np.array_equal(a[0], r[0])
+                                      and np.array_equal(a[1], r[1])),
+               spread_img=float(np.abs(a[0] - b[0]).max()),
+               resumed_vs_first_img=float(np.abs(a[0] - r[0]).max()),
+               spread_loss=float(np.abs(np.asarray(a[1]) - b[1]).max()),
+               resumed_vs_first_loss=float(np.abs(np.asarray(a[1])
+                                                  - r[1]).max()))
+    if not det:
+        rec["cause"] = ("two uninterrupted runs differ on the card: cuDNN's "
+                        "convolution algorithms are not deterministic "
+                        "(torch.backends.cudnn.deterministic is off)")
+        ok = (rec["resumed_vs_first_img"] <= 2 * rec["spread_img"]
+              and rec["resumed_vs_first_loss"] <= 2 * rec["spread_loss"])
+    else:
+        ok = rec["resumed_bit_equal"]
+    if not ok:
+        raise AssertionError(f"resume {name}: {rec}")
+    return rec
+
+
+def phase_resume():
+    """Checkpoint and resume on the card (see the module docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.engine.transfer import (TransferJob,
+                                                            _Lbfgs)
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+
+    params = init_vgg19_params(seed=0)
+    content, style = synthetic_pair()
+    state = dict(lbfgs_grams="incremental", lbfgs_state_dtype="bfloat16")
+    paths = {}
+    os.makedirs(SCRATCH, exist_ok=True)
+    try:
+        # one job: 6 steps, a checkpoint every 3, resumed from step 3
+        cfg = lbfgs_cfg(iters_num=6, stream_every=3, **state)
+
+        def job():
+            return TransferJob(content, style, cfg, params=params,
+                               device="cuda")
+
+        def final(it):
+            _d, img, loss = list(it)[-1]
+            return img, np.float32(loss)
+
+        reset_launches()  # ---- this run of the path starts here ----
+        a = final(job().run())
+        paths["resume_job"] = dict(LAUNCHES)  # ---- and ends here ----
+        check_launches("resume job", paths["resume_job"])
+        b = final(job().run())
+        path = os.path.join(SCRATCH, "job.ckpt")
+        saved = checkpointed_run(job, 3, 3, path)
+        loaded_ok = same_as_saved(
+            path, saved, _Lbfgs.leaf_specs(cfg, 1, saved["x"].numel()))
+        r = final(job().run(checkpoint_path=path, checkpoint_every=3,
+                            resume=True))
+        rec = dict(phase="resume", run="job", steps=6, saved_step=3,
+                   loaded_equals_saved=loaded_ok,
+                   **resume_verdict("job", a, b, r))
+        emit(rec)
+        RECORD.setdefault("resume", []).append(rec)
+        if not loaded_ok:
+            raise AssertionError(f"resume job: loaded state differs: {rec}")
+
+        # four lanes that shrink at step 2: lanes 0 and 2 hold a black
+        # image as content, style and start (one level, so no resize
+        # rounds it), so their loss and gradient are exactly 0 and they
+        # latch at once; lanes 1 and 3 are L-BFGS queue jobs that do not
+        # settle within 1e-4 in 6 steps and run on as a batch of two
+        from artstyletransfer_tpu_torch.engine.init_pipeline import (
+            build_init_image)
+
+        _adam, lbfgs_jobs = queue_jobs()
+        black = np.zeros_like(content)
+        bcfg = lbfgs_cfg(levels_num=1, base_diameter=512, iters_num=6,
+                         stream_every=1, lbfgs_t_init="unit", stop_tol=1e-4,
+                         stop_shrink=True, **state)
+        lanes = [(black, black, black)]
+        for i, (_t, c, s_img) in enumerate(lbfgs_jobs[:2]):
+            init, _name = build_init_image(
+                bcfg.init_method, c, s_img, bcfg,
+                rng=np.random.default_rng(bcfg.seed + 2 * i + 1))
+            lanes.append((c, s_img, init))
+        lanes = [lanes[0], lanes[1], lanes[0], lanes[2]]
+
+        def batch():
+            return BatchedTransferJob([c for c, _s, _i in lanes],
+                                      [s_ for _c, s_, _i in lanes], bcfg,
+                                      params=params, device="cuda",
+                                      init_overrides=[i for *_cs, i in lanes])
+
+        def final_b(it):
+            _d, imgs, losses = list(it)[-1]
+            return imgs, np.asarray(losses)
+
+        reset_launches()  # ---- this run of the path starts here ----
+        a = final_b(batch().run())
+        paths["resume_batch"] = dict(LAUNCHES)  # ---- and ends here ----
+        check_launches("resume batch", paths["resume_batch"])
+        b = final_b(batch().run())
+        path = os.path.join(SCRATCH, "batch.ckpt")
+        saved = checkpointed_run(batch, 3, 3, path)
+        from artstyletransfer_tpu_torch.engine import checkpoint as ckpt
+
+        step, extra = ckpt.peek_checkpoint_meta(path)
+        live = len(extra["lane_orig"])
+        loaded_ok = same_as_saved(
+            path, saved, _Lbfgs.leaf_specs(bcfg, live, saved["x"].shape[1]))
+        r = final_b(batch().run(checkpoint_path=path, checkpoint_every=3,
+                                resume=True))
+        rec = dict(phase="resume", run="batch", lanes=4, steps=6,
+                   stop_tol=bcfg.stop_tol, saved_step=step,
+                   lanes_in_checkpoint=live,
+                   frozen_in_checkpoint=[o for o, _l in extra["finished"]],
+                   loaded_equals_saved=loaded_ok,
+                   **resume_verdict("batch", a, b, r))
+        emit(rec)
+        RECORD.setdefault("resume", []).append(rec)
+        if not (loaded_ok and live == 2
+                and sorted(rec["frozen_in_checkpoint"]) == [0, 2]):
+            raise AssertionError(f"resume batch: {rec}")
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1074,6 +1491,8 @@ def main() -> int:
     phase_golden()
     paths = {"main": phase_main()}
     paths.update(phase_queue())
+    paths.update(phase_lbfgs_state())
+    paths.update(phase_resume())
     summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi

@@ -3,13 +3,15 @@
 
     python3 scripts/profile_torch_step.py [--steps 10] [--size 512]
         [--lanes 1] [--t-init lr] [--precision default]
+        [--lbfgs-grams recompute] [--lbfgs-state-dtype float32]
 
 Builds the port's smoke job on the card (2 pyramid levels, full-width
 VGG19 with seeded weights, seeded synthetic size x size images) — with
 --lanes N > 1, N copies of it as one BatchedTransferJob (the batched
 queue's unit of work) — runs a few warm-up steps of Adam and of L-BFGS
 (--t-init: the first line-search trial, 'lr' or 'unit'; the batched queue
-batches 'unit'), then traces `--steps` steps of each with torch.profiler
+batches 'unit'; --lbfgs-grams and --lbfgs-state-dtype: the L-BFGS state
+options), then traces `--steps` steps of each with torch.profiler
 (CUDA activity) and prints one JSON line per optimizer:
 
 - host wall ms per step over `--steps` untraced steps (and job-steps/s:
@@ -20,10 +22,17 @@ batches 'unit'), then traces `--steps` steps of each with torch.profiler
   the device's timeline (the profiler's host overhead may lengthen it);
 - device ms per step by group: cuDNN/cuBLAS convolution and matmul
   kernels, the port's own kernels (gram, gram_bwd, tv, tv_bwd), and the
-  rest (elementwise, reductions, copies);
+  rest (elementwise, reductions, copies); and `cublas_matmul_ms_per_step`,
+  the cuBLAS matrix products and GEMVs among them (not cuDNN's
+  convolutions): the L-BFGS history contractions and the bicubic
+  pyramid resize;
 - kernel_launches_per_step: the CUDA kernels the traced window ran (its
   kernel events, memory copies and sets left out) over its steps;
-- the ten kernels with the most device time.
+- evals_per_step (traced window) and evals_per_step_untraced: loss and
+  gradient evaluations per step, from the port's launch counters (one TV
+  forward per level and evaluation; a lane's line search may take more
+  than one), and device_busy_ms_per_eval;
+- the fifteen kernels with the most device time.
 
 Needs a CUDA device; exits 1 without one.
 """
@@ -62,6 +71,13 @@ def _group(name: str) -> str:
     return "other"
 
 
+def _is_cublas_matmul(name: str) -> bool:
+    low = name.lower()
+    return (("gemm" in low or "gemv" in low or "splitkreduce" in low)
+            and not any(k in low for k in ("conv", "implicit", "fprop",
+                                            "dgrad", "wgrad", "cudnn")))
+
+
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -73,30 +89,42 @@ def profile(job, steps: int, warmup: int):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES
+
+    def evals():
+        # one TV forward launch per level and loss evaluation
+        return LAUNCHES["tv"] / len(job.level_shapes)
+
     it = job.run(iters_num=warmup + 2 * steps, stream_every=1,
                  yield_images=False)
     for _ in range(warmup):
         next(it)
     torch.cuda.synchronize()
+    e0 = evals()
     t0 = time.perf_counter()  # wall clock without the profiler's overhead
     for _ in range(steps):
         next(it)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    e1 = evals()
     # CUDA activity only: no per-op host records to slow the host down
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             next(it)
         torch.cuda.synchronize()
+    e2 = evals()
     groups = {"cudnn_cublas": 0.0, "gram": 0.0, "gram_bwd": 0.0, "tv": 0.0,
               "tv_bwd": 0.0, "conv_relu": 0.0, "other": 0.0}
     kernels = []
     launches = 0
+    matmul_ms = 0.0
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         groups[_group(evt.key)] += us / 1e3
+        if _is_cublas_matmul(evt.key):
+            matmul_ms += us / 1e3
         kernels.append((us / 1e3, evt.count, evt.key))
         if not evt.key.startswith(("Memcpy", "Memset")):
             launches += evt.count
@@ -109,14 +137,18 @@ def profile(job, steps: int, warmup: int):
     kernels.sort(reverse=True)
     return dict(
         wall_ms_per_step=wall_ms / steps,
+        evals_per_step_untraced=(e1 - e0) / steps,
+        evals_per_step=(e2 - e1) / steps,
         device_busy_ms_per_step=busy_ms / steps,
+        device_busy_ms_per_eval=busy_ms / (e2 - e1),
         device_span_ms_per_step=span_ms / steps,
         device_idle_share=1.0 - busy_ms / span_ms,
         device_ms_per_step={k: v / steps for k, v in groups.items()},
+        cublas_matmul_ms_per_step=matmul_ms / steps,
         kernel_launches_per_step=launches / steps,
         top_kernels=[dict(name=k[:90], ms_per_step=ms / steps,
                           calls_per_step=n / steps)
-                     for ms, n, k in kernels[:10]])
+                     for ms, n, k in kernels[:15]])
 
 
 def main() -> int:
@@ -133,6 +165,10 @@ def main() -> int:
     ap.add_argument("--t-init", choices=["lr", "unit"], default="lr")
     ap.add_argument("--precision", choices=["default", "high", "highest"],
                     default="default")
+    ap.add_argument("--lbfgs-grams", choices=["recompute", "incremental"],
+                    default="recompute")
+    ap.add_argument("--lbfgs-state-dtype", choices=["float32", "bfloat16"],
+                    default="float32")
     args = ap.parse_args()
 
     from chip_smoke import synthetic_pair
@@ -149,7 +185,9 @@ def main() -> int:
     for optimizer in ("adam", "lbfgs"):
         cfg = Config(levels_num=2, base_diameter=args.size // 2,
                      optimizer=optimizer, lbfgs_t_init=args.t_init,
-                     conv_precision=args.precision)
+                     conv_precision=args.precision,
+                     lbfgs_grams=args.lbfgs_grams,
+                     lbfgs_state_dtype=args.lbfgs_state_dtype)
         if args.lanes > 1:
             job = BatchedTransferJob([content] * args.lanes,
                                      [style] * args.lanes, cfg, params=params,
@@ -160,7 +198,8 @@ def main() -> int:
         prof = profile(job, args.steps, args.warmup)
         rec = dict(script="profile_torch_step", gpu=smi, size=args.size,
                    optimizer=optimizer, lanes=args.lanes, t_init=args.t_init,
-                   precision=args.precision, steps=args.steps,
+                   precision=args.precision, lbfgs_grams=args.lbfgs_grams,
+                   lbfgs_state_dtype=args.lbfgs_state_dtype, steps=args.steps,
                    job_steps_per_s=args.lanes * 1e3 / prof["wall_ms_per_step"],
                    **prof)
         print(json.dumps(rec), flush=True)

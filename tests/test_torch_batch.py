@@ -367,14 +367,6 @@ def test_batch_rejects_mixed_shapes_and_unported_options(jobs_data,
         pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
                                   params=vgg_params, device="cpu",
                                   shard_space=True)
-    job = pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
-                                    params=vgg_params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        list(job.run(checkpoint_path="ck.npz", checkpoint_every=1))
-    with pytest.raises(NotImplementedError):
-        pbatch.run_job_queue([("a", contents[0], styles[0])], cfg,
-                             params=vgg_params, checkpoint_dir="ck",
-                             device="cpu")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, jobs_data):
@@ -568,7 +560,7 @@ def test_queue_cli_cpu_run(tmp_path):
     assert cv2.imread(str(out / "one.jpg")).shape == (16, 19, 3)
     assert main(["--pair", str(tmp_path / "c1.png"), str(tmp_path / "s.png"),
                  *flags]) == 0
-    for bad in (["--space", "2"], ["--checkpoint-dir", str(tmp_path)]):
+    for bad in (["--space", "2"], ["--resume"]):
         with pytest.raises(SystemExit):
             main(["--pair", "a.png", "b.png", *flags, *bad])
 

@@ -114,11 +114,3 @@ def test_lbfgs_step_minimizes_and_fills_history():
     assert state.n_evals >= 7
     f_check, _ = _torch_loss_grad(x)
     np.testing.assert_allclose(float(f_check), state.f, rtol=1e-6)
-
-
-def test_unported_state_options_raise():
-    with pytest.raises(NotImplementedError):
-        tl.init_state(_torch_loss_grad, torch.zeros(4), 2, track_grams=True)
-    with pytest.raises(NotImplementedError):
-        tl.init_state(_torch_loss_grad, torch.zeros(4), 2,
-                      state_dtype="bfloat16")

@@ -109,9 +109,3 @@ def test_nan_check_raises(params):
 def test_unported_options_raise(params):
     with pytest.raises(NotImplementedError):
         _small_job(params, iters_num=1, remat_levels=True)
-    job = _small_job(params, iters_num=1, optimizer="adam")
-    with pytest.raises(NotImplementedError):
-        list(job.run(checkpoint_path="ck.npz"))
-    job = _small_job(params, iters_num=1, lbfgs_state_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        list(job.run())
