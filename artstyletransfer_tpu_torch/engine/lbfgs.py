@@ -56,7 +56,24 @@ _TOL_CHANGE = 1e-9
 
 _f32 = np.float32
 
+# loss_grad(x) -> ((B,) losses, (B, n) gradients) of the (B, n) lanes x.
+# The results must be tensors the caller owns (a gradient is kept across
+# later evaluations: state.g, the line search's bracket ends); a graphed
+# evaluation copies its outputs out for that (engine/graphs.py). It may
+# also have along(x, t, d), the same at x + t d, which a graphed
+# evaluation writes straight into its static input.
 LossGradFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _eval_along(loss_grad: LossGradFn, x: torch.Tensor, t: torch.Tensor,
+                d: torch.Tensor):
+    """loss_grad at the trial points x + t d (t (B, 1)), formed by one
+    addcmul whichever way loss_grad evaluates, so the graphed and the
+    eager trajectories see the same points."""
+    along = getattr(loss_grad, "along", None)
+    if along is not None:
+        return along(x, t, d)
+    return loss_grad(torch.addcmul(x, t, d))
 
 
 @dataclasses.dataclass
@@ -477,7 +494,7 @@ def _lane_strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor,
     results = {}
     while searches:
         t_dev = torch.from_numpy(t_now.copy()).to(x.device).unsqueeze(1)
-        f, g = loss_grad(x + t_dev * d)
+        f, g = _eval_along(loss_grad, x, t_dev, d)
         fg = torch.stack([f.float(), (g * d).sum(dim=1)]).cpu().numpy()
         for b in list(searches):
             try:

@@ -21,6 +21,13 @@ as (B, ...), every loss is a (B,) vector, and a lane's gradient is that of
 its own loss, since VGG couples no lanes. A single job is one lane, and
 parallel/batch.py builds the batched job on the same pieces.
 
+On CUDA every loss-and-gradient evaluation replays a CUDA graph captured
+once per (bucket shape, lanes, config, weights) and kept in the bounded
+``_COMPILE_CACHE`` (engine/graphs.py; the JAX package's jitted runners):
+one host launch instead of ~370 kernel launches. ``graphs=False`` runs
+eagerly, as the CPU does by default. The optimizers' updates and the
+per-level metrics stay eager.
+
 ``TransferJob.run`` checkpoints and resumes the whole optimization state
 (engine/checkpoint.py), as the JAX package's does. Not ported yet (it
 raises NotImplementedError): ``remat_levels``. ``pipeline_streaming`` (the
@@ -33,6 +40,7 @@ from __future__ import annotations
 import asyncio
 import os
 import sys
+import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -40,12 +48,14 @@ import torch
 
 from ..config import Config, precision_gate, resolve_device
 from ..models.vgg19 import CONTENT_INDEX, STYLE_INDICES, extract_features
-from ..models.weights import load_vgg19_params, params_from_jax
+from ..models.weights import shared_params
 from ..ops.gram import gram_matrix
 from ..ops.losses import level_loss
 from ..ops.resize import downscale2x
+from ..utils.cache import BoundedCache
 from ..utils.image import prepare_img, unprepare_img
 from . import checkpoint as ckpt
+from . import graphs as graphs_mod
 from . import lbfgs as lbfgs_mod
 from .init_pipeline import build_init_image
 from .pyramid import build_input_pyramids
@@ -196,6 +206,87 @@ def _compute_targets(params, content_levels_pre: List[torch.Tensor],
     return tuple(targets)
 
 
+# --------------------------------------------------------------------------
+# Captured evaluations (cached per shape + config + lanes + weights)
+# --------------------------------------------------------------------------
+
+# LRU-bounded (ASTT_RUNNER_CACHE_SIZE, default 32), as the JAX package's
+# runner cache: each entry holds a CUDA graph and its static buffers
+_COMPILE_CACHE = BoundedCache()
+_cache_lock = threading.Lock()
+
+
+def _eval_body(loss_fn, params):
+    """body(targets, x) -> ((B,) total losses, (B, n) d total / d x), both
+    detached: one eager evaluation, or what a graph captures."""
+
+    def body(targets, x):
+        x = x.detach().requires_grad_(True)
+        total, _ = loss_fn(params, targets, x)
+        (g,) = torch.autograd.grad(total.sum(), x)
+        return total.detach(), g
+
+    return body
+
+
+def eval_graph(job, targets, x: torch.Tensor) -> graphs_mod.EvalGraph:
+    """The cached evaluation of `job`'s shapes and config at x's lane
+    count, captured now if missing (inside the caller's precision gate):
+    a CUDA graph on the card, the eager test seam on the CPU. The key is
+    the engine config's fingerprint (_config_key, also the checkpoints'
+    own) extended by the lanes, the device and the identity of the
+    weights the graph binds."""
+    key = _config_key(job.cfg, job.level_shapes) + (
+        x.shape[0], str(job.device), id(job.params))
+    with _cache_lock:
+        if key in _COMPILE_CACHE:
+            return _COMPILE_CACHE[key]
+        capture = (graphs_mod.cuda_capture if job.device.type == "cuda"
+                   else graphs_mod.eager_capture)
+        entry = graphs_mod.EvalGraph(_eval_body(job._loss_fn, job.params),
+                                     x, targets, capture)
+        _COMPILE_CACHE[key] = entry
+        return entry
+
+
+class LossGrad:
+    """loss_grad(x) for a job's (B, n) lanes against `targets`: ((B,)
+    losses, (B, n) gradient), tensors the caller owns. Graphed: a replay
+    of the job's cached evaluation for B lanes, bound to these targets;
+    else eager. along(x, t, d) evaluates at x + t d (L-BFGS's trial
+    points; graphed, the point is written straight into the static
+    input)."""
+
+    def __init__(self, job, targets, graphed: bool):
+        self._job = job
+        self._targets = targets
+        self._graphed = graphed
+        self._graph = None
+        self._owner = object()  # binds the entry without keeping the job
+
+    def _entry(self, x):
+        if self._graph is None:
+            self._graph = eval_graph(self._job, self._targets, x)
+        return self._graph
+
+    def __call__(self, x: torch.Tensor):
+        if not self._graphed:
+            return _eval_body(self._job._loss_fn, self._job.params)(
+                self._targets, x)
+        return self._entry(x)(self._owner, self._targets, x)
+
+    def along(self, x: torch.Tensor, t: torch.Tensor, d: torch.Tensor):
+        if not self._graphed:
+            return self(torch.addcmul(x, t, d))
+        return self._entry(x)(self._owner, self._targets, x, t, d)
+
+
+def use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
+    """A job's graphs setting: on for CUDA unless graphs=False; off on the
+    CPU unless graphs=True (the eager-replay test seam)."""
+    return device.type == "cuda" if graphs is None else bool(graphs)
+
+
 def _lr_at(cfg: Config, step: int) -> np.float32:
     """lr before the (0-based) step's update: the reference decays BEFORE
     each use, so step k runs at lr_start * decay^(k+1) (float32)."""
@@ -329,18 +420,19 @@ class TransferJob:
     Runs on CUDA unless device='cpu' is passed; raises when CUDA is
     unavailable and the CPU was not asked for. params: repo-format numpy
     weights (HWIO, as load_vgg19_params / init_vgg19_params return them);
-    None resolves them from cfg.seed.
+    None resolves them from cfg.seed. graphs: evaluate by CUDA graph
+    replay (the default on CUDA; graphs=False runs eagerly, the
+    counterpart of jax.disable_jit; on the CPU graphs=True runs the
+    graphs' static-buffer plumbing eagerly, for tests).
     """
 
     def __init__(self, content: np.ndarray, style: np.ndarray, cfg: Config,
                  params=None, init_override: Optional[np.ndarray] = None,
-                 device=None):
+                 device=None, graphs: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_supported(cfg)
-        if params is None:
-            params = load_vgg19_params(seed=cfg.seed)
-        self.params = params_from_jax(params, self.device)
+        self.params = shared_params(params, cfg.seed, self.device)
 
         content_levels, style_levels = build_input_pyramids(
             content, style, cfg.levels_num, cfg.base_diameter)
@@ -357,6 +449,8 @@ class TransferJob:
         self._loss_fn = _make_pyramid_loss(self.level_shapes, cfg)
         with precision_gate(cfg.conv_precision):
             self.targets = _compute_targets(self.params, c_pre, s_pre, cfg)
+        self._loss_grad = LossGrad(self, self.targets,
+                                   use_graphs(self.device, graphs))
 
         self.last_level_losses = None  # set by run(report_level_losses=True)
         if init_override is not None:
@@ -370,14 +464,6 @@ class TransferJob:
             prepare_img(init_img).reshape(1, -1)).to(self.device)  # one lane
 
     # ---- loss evaluation -------------------------------------------------
-
-    def _loss_grad(self, x: torch.Tensor):
-        """((1,) total loss, (1, n) d total / d x) at the one lane x,
-        both detached."""
-        x = x.detach().requires_grad_(True)
-        total, _ = self._loss_fn(self.params, self.targets, x)
-        (g,) = torch.autograd.grad(total.sum(), x)
-        return total.detach(), g
 
     @torch.no_grad()
     def _metrics(self, x: torch.Tensor):

@@ -31,8 +31,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES
-from . import build
+from . import build, launched
 
 # the forward's 64 x 64 output tiles of G, walked in 32-row chunks
 # (csrc/gram.cu); row splits: at most _BLOCKS_PER_SM blocks per SM in all
@@ -140,7 +139,7 @@ def gram_cuda(f: torch.Tensor, scale: float) -> torch.Tensor:
         err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], batch, n, c, splits,
                  rows, float(scale), part.data_ptr(), out.data_ptr(), stream)
     build.check(err, "gram")
-    LAUNCHES["gram"] += 1
+    launched("gram", stream)
     return out
 
 
@@ -167,7 +166,7 @@ def gram_bwd_cuda(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], g.data_ptr(), batch, n,
                  c, out.data_ptr(), stream)
     build.check(err, "gram_bwd")
-    LAUNCHES["gram_bwd"] += 1
+    launched("gram_bwd", stream)
     return out
 
 

@@ -27,8 +27,7 @@ import functools
 
 import torch
 
-from . import LAUNCHES
-from . import build
+from . import build, launched
 
 _MAX_LANES = 65535        # gridDim.y
 _MAX_C = 4                # channels the kernels are built for (1..4)
@@ -199,12 +198,12 @@ def _tv_out(y: torch.Tensor) -> torch.Tensor:
     vec = vec_width(w, c, y.data_ptr())
     plan = _plan(index, b, h, w, c, vec)
     out = torch.empty((b, 5), dtype=torch.float32, device=y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     err = _lib().astt_tv_fwd(
         y.data_ptr(), b, h, w, c, vec, plan["cluster"], plan["fwd_warps"],
-        plan["fwd_rows"], out.data_ptr(), index,
-        torch.cuda.current_stream(y.device).cuda_stream)
+        plan["fwd_rows"], out.data_ptr(), index, stream)
     build.check(err, "tv")
-    LAUNCHES["tv"] += 1
+    launched("tv", stream)
     return out
 
 
@@ -232,13 +231,13 @@ def tv_bwd_cuda(y: torch.Tensor, g: torch.Tensor,
     vec = vec_width(w, c, y.data_ptr())
     plan = _plan(index, b, h, w, c, vec)
     grad = torch.empty_like(y, memory_format=torch.contiguous_format)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     err = _lib().astt_tv_bwd(
         y.data_ptr(), g.data_ptr(), g.stride(0), means.data_ptr(),
         means.stride(0), b, h, w, c, vec, plan["bwd_blocks"],
-        plan["bwd_warps"], plan["bwd_rows"], grad.data_ptr(), index,
-        torch.cuda.current_stream(y.device).cuda_stream)
+        plan["bwd_warps"], plan["bwd_rows"], grad.data_ptr(), index, stream)
     build.check(err, "tv_bwd")
-    LAUNCHES["tv_bwd"] += 1
+    launched("tv_bwd", stream)
     return grad
 
 

@@ -10,18 +10,21 @@ by conv name, the same as the JAX package — and resolved, in order, from
      gives the same weights as the JAX package's ``init_vgg19_params``).
 
 ``params_from_jax`` turns that format into the OIHW torch tensors the
-port's VGG19 runs on. Loading torchvision ``.pth`` and Keras ``.h5`` files
+port's VGG19 runs on, and ``shared_params`` keeps one such copy per
+source and device for every job that names that source. Loading torchvision ``.pth`` and Keras ``.h5`` files
 is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..utils.cache import BoundedCache
 from .vgg19 import CONV_NAMES, param_shapes
 
 _ENV_VAR = "ASTT_VGG19_WEIGHTS"
@@ -100,3 +103,36 @@ def params_from_jax(np_params: NpParams, device="cpu"):
                 np.asarray(np_params[name]["b"], np.float32)).to(device),
         }
     return out
+
+
+_SHARED = BoundedCache(4)
+_shared_lock = threading.Lock()
+
+
+def shared_params(np_params: Optional[NpParams], seed: int, device):
+    """A job's device weights: params_from_jax of np_params (or of
+    load_vgg19_params(seed=seed) when it is None) on `device`, converted
+    once per source and device and shared by every job of that source.
+
+    A source is the np_params object itself (by identity), or for None
+    the seed and the weights file the environment names (path and
+    modification time). The captured evaluations (engine/graphs.py) bind
+    the weights' tensors, so jobs share a graph only when they share
+    these. The last 4 sources are kept."""
+    dev = str(torch.device(device))
+    if np_params is None:
+        env = os.environ.get(_ENV_VAR)
+        stamp = (os.stat(env).st_mtime_ns
+                 if env and os.path.exists(env) else None)
+        key = ("seed", seed, env, stamp, dev)
+    else:
+        key = ("object", id(np_params), dev)
+    with _shared_lock:
+        if key in _SHARED and _SHARED[key][0] is np_params:
+            return _SHARED[key][1]
+        src = (np_params if np_params is not None
+               else load_vgg19_params(seed=seed))
+        out = params_from_jax(src, device)
+        # the source object is kept with its copy, so its id is not reused
+        _SHARED[key] = (np_params, out)
+        return out

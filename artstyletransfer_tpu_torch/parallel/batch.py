@@ -15,6 +15,13 @@ style shapes across jobs. ``bucket_jobs`` groups an arbitrary job queue
 into such buckets; the canonicalize helpers collapse arbitrary inputs into
 a few aspect buckets.
 
+On CUDA a batch evaluates by replaying the captured evaluation of its
+lane count (engine/graphs.py; the JAX package's ``_BATCH_CACHE``), shared
+through engine/transfer.py's ``_COMPILE_CACHE`` with every job of the
+same bucket, config and weights, so a queue's later rounds of a bucket
+capture nothing; a convergence shrink moves to the graph of the smaller
+size (``warm_shrink_graphs`` captures those ahead of time).
+
 A batch checkpoints and resumes as a whole (engine/checkpoint.py), in the
 middle of a convergence shrink too, and ``run_job_queue`` keeps one
 checkpoint per group. Not ported yet (they raise NotImplementedError): a
@@ -38,12 +45,13 @@ from ..config import Config, precision_gate, resolve_device
 from ..engine.init_pipeline import build_init_image
 from ..engine.pyramid import build_input_pyramids, level_shape
 from ..engine import checkpoint as ckpt
-from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, _Adam, _Lbfgs,
-                               _check_supported, _compute_targets,
+from ..engine import graphs as graphs_mod
+from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, LossGrad, _Adam,
+                               _Lbfgs, _check_supported, _compute_targets,
                                _config_key, _make_pyramid_loss,
-                               _raise_nonfinite_batch, lbfgs_history_gb,
-                               warn_lbfgs_hbm)
-from ..models.weights import load_vgg19_params, params_from_jax
+                               _raise_nonfinite_batch, eval_graph,
+                               lbfgs_history_gb, use_graphs, warn_lbfgs_hbm)
+from ..models.weights import shared_params
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
 
@@ -91,13 +99,15 @@ class BatchedTransferJob:
     weights (HWIO); None resolves them from cfg.seed. Job i's noise init
     is seeded with cfg.seed + i, as in the JAX package. pad_batch_to
     replicates the last job up to that many lanes; padded results are
-    dropped in run()."""
+    dropped in run(). graphs: as TransferJob's (graph replay by default
+    on CUDA, graphs=False eager)."""
 
     def __init__(self, contents: Sequence[np.ndarray],
                  styles: Sequence[np.ndarray], cfg: Config, params=None,
                  mesh=None, shard_space: bool = False,
                  init_overrides: Optional[Sequence[np.ndarray]] = None,
-                 pad_batch_to: Optional[int] = None, device=None):
+                 pad_batch_to: Optional[int] = None, device=None,
+                 graphs: Optional[bool] = None):
         if len(contents) != len(styles) or not contents:
             raise ValueError("need one style per content and at least one "
                              "job")
@@ -105,9 +115,8 @@ class BatchedTransferJob:
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_supported(cfg)
-        if params is None:
-            params = load_vgg19_params(seed=cfg.seed)
-        self.params = params_from_jax(params, self.device)
+        self.params = shared_params(params, cfg.seed, self.device)
+        self.graphs = use_graphs(self.device, graphs)
 
         c0 = contents[0].shape
         s0 = styles[0].shape
@@ -160,14 +169,28 @@ class BatchedTransferJob:
         with precision_gate(cfg.conv_precision):
             self.targets = _compute_targets(self.params, c_dev, s_dev, cfg)
         self._x0 = torch.from_numpy(np.stack(x0)).to(self.device)  # (B, n)
+        # ((B,) losses, (B, n) gradients) at x: the gradient of the
+        # losses' sum, which is each lane's own gradient
+        self._loss_grad = LossGrad(self, self.targets, self.graphs)
 
-    def _loss_grad(self, x: torch.Tensor, targets):
-        """((B,) losses, (B, n) gradients) at x, both detached: the gradient
-        of the losses' sum, which is each lane's own gradient."""
-        x = x.detach().requires_grad_(True)
-        total, _ = self._loss_fn(self.params, targets, x)
-        (g,) = torch.autograd.grad(total.sum(), x)
-        return total.detach(), g
+    def warm_shrink_graphs(self) -> int:
+        """Capture the evaluation of every smaller batch size that run()'s
+        convergence shrinking can re-form this batch at (shrink_ladder;
+        the counterpart of the JAX package's warm_shrink_gathers), so
+        that no shrink captures mid-run. Returns how many graphs it
+        captured (sizes already cached capture nothing); 0 unless
+        cfg.stop_tol and cfg.stop_shrink are set, graphs are on and the
+        batch has more than one lane."""
+        if not (self.cfg.stop_tol > 0.0 and self.cfg.stop_shrink
+                and self.batch > 1 and self.graphs):
+            return 0
+        before = graphs_mod.CAPTURES
+        with precision_gate(self.cfg.conv_precision):
+            for size in shrink_ladder(self.batch):
+                idx = torch.arange(size, device=self.device)
+                eval_graph(self, _select_targets(self.targets, idx),
+                           self._x0[:size])
+        return graphs_mod.CAPTURES - before
 
     @torch.no_grad()
     def initial_losses(self) -> np.ndarray:
@@ -216,9 +239,7 @@ class BatchedTransferJob:
         opt_cls = _Adam if cfg.optimizer == "adam" else _Lbfgs
 
         targets = self.targets  # shrinking selects its lanes
-
-        def loss_grad(x):
-            return self._loss_grad(x, targets)
+        loss_grad = self._loss_grad  # and moves to the graph of its size
 
         x = self._x0.clone()
         done = 0
@@ -307,6 +328,7 @@ class BatchedTransferJob:
                 targets = _select_targets(
                     self.targets, torch.as_tensor(lane_src, dtype=torch.long,
                                                   device=self.device))
+                loss_grad = LossGrad(self, targets, self.graphs)
             if done >= iters or ck_extra.get("converged"):
                 # a finished batch: its final images, and the live lanes'
                 # losses at them beside the frozen jobs' own
@@ -375,6 +397,8 @@ class BatchedTransferJob:
                             f = f.index_select(0, idx)
                             opt.select(sel)
                             targets = _select_targets(targets, idx)
+                            opt.loss_grad = LossGrad(self, targets,
+                                                     self.graphs)
                             f_np = f_np[sel]
                             lane_orig = ([lane_orig[ln] for ln in still]
                                          + [None] * (tgt - len(still)))
@@ -605,7 +629,6 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     if canonicalize_styles:
         jobs = [(tid, c, canonicalize_style(s, cfg)) for tid, c, s in jobs]
 
-    params = params if params is not None else load_vgg19_params(seed=cfg.seed)
     policy = resolve_batch_policy(cfg, batch_policy)
     results: Dict[str, np.ndarray] = {}
     failures: Dict[str, Exception] = {}

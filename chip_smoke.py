@@ -80,7 +80,24 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               loaded state must equal the saved one bit for bit, and the
               resumed run the uninterrupted one: bit for bit when the two
               uninterrupted runs agree bit for bit, else within twice
-              their spread (the record then names the cause).
+              their spread (the record then names the cause);
+8. graphs   — the compiled step (engine/graphs.py). Phases 4-7 already
+              evaluate by CUDA graph replay (the default on CUDA); here
+              graphed and eager (graphs=False) meet. One evaluation at
+              the main job's shapes (1 lane, 2 levels, 512 px) and at 8
+              lanes, replayed against eager at the same x and at a trial
+              point x + t d: losses and gradients bit-equal, else within
+              the goldens' gate (loss rtol 1e-3, gradient 1e-3 of its
+              largest entry), and the kernels' launches per replay equal
+              eager's; one job graphed and eager in turns (Adam 20 steps,
+              unit L-BFGS 10): steps/s, host launches and CUDA kernels
+              per step, final images and losses within the goldens' gate
+              (PSNR > 50 dB, loss rtol 1e-3); two concurrent jobs of two
+              buckets through Executor, each within that gate of its solo
+              run; warmup of every DEFAULT_ASPECT_BUCKETS bucket at sizes
+              1, 2, 4 and 8 (graphs, seconds per capture, peak memory),
+              then a padded queue round over three buckets that must
+              capture nothing.
 
 Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
@@ -986,19 +1003,24 @@ def single_run(content, style, cfg, params):
     return rates, losses[0]
 
 
-def launches_per_eval(content, style, cfg, params, lanes):
+def launches_per_eval(content, style, cfg, params, lanes, graphs=None):
     """Kernel launches of one batched loss/grad evaluation of `lanes`
-    copies of a job."""
+    copies of a job (by default a replay of its captured evaluation: the
+    first call, which may capture, is not counted)."""
     import torch
 
+    from artstyletransfer_tpu_torch.config import precision_gate
     from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
     from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
 
     job = BatchedTransferJob([content] * lanes, [style] * lanes, cfg,
-                             params=params, device="cuda")
-    reset_launches()
-    job._loss_grad(job._x0, job.targets)
-    torch.cuda.synchronize()
+                             params=params, device="cuda", graphs=graphs)
+    with precision_gate(cfg.conv_precision):
+        job._loss_grad(job._x0)
+        torch.cuda.synchronize()
+        reset_launches()
+        job._loss_grad(job._x0)
+        torch.cuda.synchronize()
     return dict(LAUNCHES)
 
 
@@ -1477,6 +1499,344 @@ def phase_resume():
     return paths
 
 
+GRAPH_GATE = dict(loss_rtol=1e-3, grad_rel=1e-3, psnr_db=50.0)
+# CUDA API calls (cuda* and cu*) that launch work from the host: a kernel, a
+# cluster launch, or a whole CUDA graph (one call, however many kernels)
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+                     "cuGraphLaunch")
+
+
+def host_launches(prof):
+    """(host launches, CUDA kernels) recorded by a torch.profiler session:
+    the runtime calls of HOST_LAUNCH_CALLS (a graph launch counts once)
+    and the kernels the device ran. Host launches are None when the
+    session recorded no runtime calls."""
+    import torch
+
+    calls = launches = kernels = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if not evt.key.startswith(("Memcpy", "Memset")):
+                kernels += evt.count
+        elif evt.key.startswith(("cuda", "cu")):
+            calls += evt.count
+            if evt.key.startswith(HOST_LAUNCH_CALLS):
+                launches += evt.count
+    return (launches if calls else None), kernels
+
+
+def step_profile(job, warm: int = 2, steps: int = 5):
+    """Host launches and CUDA kernels per step over `steps` steps of a
+    job's run, after `warm` steps (torch.profiler, CUDA activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = job.run(iters_num=warm + steps, stream_every=1, yield_images=False)
+    for _ in range(warm):
+        next(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            next(it)
+        torch.cuda.synchronize()
+    it.close()
+    launches, kernels = host_launches(prof)
+    return dict(host_launches_per_step=(None if launches is None
+                                        else launches / steps),
+                kernels_per_step=kernels / steps)
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| (float64)."""
+    a, b = a.double(), b.double()
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale > 0 else 0.0
+
+
+def eval_check(name, eager, graphed, cfg):
+    """One evaluation of `graphed` (a replay) against `eager` at x0 + noise
+    and at the trial point x0 + t (x1 - x0): losses and gradients, the
+    kernels' launches of one evaluation each way, host ms per evaluation
+    and the capture's seconds."""
+    import torch
+
+    from artstyletransfer_tpu_torch.config import precision_gate
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    x0 = eager._x0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x1 = x0 + 8.0 * torch.randn(x0.shape, generator=gen, device="cuda")
+    t = torch.full((x0.shape[0], 1), 0.25, device="cuda")
+    rec = dict(phase="graphs", run="eval", name=name, lanes=x0.shape[0])
+    with precision_gate(cfg.conv_precision):
+        t0 = time.perf_counter()
+        graphed._loss_grad(x0)  # captures
+        torch.cuda.synchronize()
+        rec["first_call_s"] = time.perf_counter() - t0
+        rec["capture_s"] = graphed._loss_grad._graph.capture_s
+        out, counts = {}, {}
+        for way, job in (("eager", eager), ("graphed", graphed)):
+            job._loss_grad(x1)
+            torch.cuda.synchronize()
+            reset_launches()
+            out[way] = job._loss_grad(x1)
+            torch.cuda.synchronize()
+            counts[way] = dict(LAUNCHES)
+            out[way + "_along"] = job._loss_grad.along(x0, t, x1 - x0)
+            rec[way + "_eval_ms"] = host_ms(lambda: job._loss_grad(x1),
+                                            reps=20, warmup=3)
+        again = eager._loss_grad(x1)
+        torch.cuda.synchronize()
+    rec["launches_eager"], rec["launches_graphed"] = (counts["eager"],
+                                                      counts["graphed"])
+    rec["eager_rerun_bit_equal"] = bool(
+        torch.equal(again[0], out["eager"][0])
+        and torch.equal(again[1], out["eager"][1]))
+    ok = counts["eager"] == counts["graphed"]
+    for at in ("", "_along"):
+        (fe, ge), (fg, gg) = out["eager" + at], out["graphed" + at]
+        bit = bool(torch.equal(fe, fg) and torch.equal(ge, gg))
+        loss_rel = float(((fg.double() / fe.double()) - 1.0).abs().max())
+        grad_rel = _rel(gg, ge)
+        rec["x1" + at] = dict(bit_equal=bit, loss_rel=loss_rel,
+                              grad_rel=grad_rel)
+        ok = ok and (bit or (loss_rel <= GRAPH_GATE["loss_rtol"]
+                             and grad_rel <= GRAPH_GATE["grad_rel"]))
+    emit(rec)
+    RECORD.setdefault("graphs", []).append(rec)
+    if not ok:
+        raise AssertionError(f"graphs eval {name}: {rec}")
+    return rec
+
+
+def job_runs(content, style, params):
+    """One job graphed and eager in turns (eager, graphed, graphed,
+    eager): Adam 20 steps and unit L-BFGS 10 steps at the main job's
+    shapes; steps/s past the first chunk (which holds a graphed job's
+    capture), host launches and CUDA kernels per step, and the final
+    images and losses graphed against eager."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    runs = [("adam", Config(levels_num=2, base_diameter=256, iters_num=20,
+                            stream_every=5, optimizer="adam")),
+            ("lbfgs_unit", lbfgs_cfg(lbfgs_t_init="unit"))]
+    reset_launches()  # ---- this run of the path starts here ----
+    recs = []
+    for name, cfg in runs:
+        finals, rates, profiles = {}, {}, {}
+        for graphed in (False, True, True, False):
+            way = "graphed" if graphed else "eager"
+            job = TransferJob(content, style, cfg, params=params,
+                              device="cuda", graphs=graphed)
+            stamps = []
+            for done, img, loss in job.run():
+                torch.cuda.synchronize()
+                stamps.append((time.perf_counter(), done, img, loss))
+            (t_a, d_a, _i, _l), (t_b, d_b, img, loss) = stamps[0], stamps[-1]
+            rates.setdefault(way, []).append((d_b - d_a) / (t_b - t_a))
+            finals.setdefault(way, (img, np.float32(loss)))
+            if way not in profiles:
+                profiles[way] = step_profile(
+                    TransferJob(content, style, cfg, params=params,
+                                device="cuda", graphs=graphed))
+        (ie, le), (ig, lg) = finals["eager"], finals["graphed"]
+        rec = dict(phase="graphs", run="job", optimizer=name,
+                   steps=cfg.iters_num,
+                   steps_per_s={k: v for k, v in rates.items()},
+                   **{f"{k}_profile": v for k, v in profiles.items()},
+                   final_bit_equal=bool(np.array_equal(ie, ig)
+                                        and le == lg),
+                   final_psnr_db=psnr(ig, ie),
+                   final_loss_rel=float(abs(lg / le - 1.0)))
+        emit(rec)
+        RECORD.setdefault("graphs", []).append(rec)
+        recs.append(rec)
+        if not (rec["final_bit_equal"]
+                or (rec["final_psnr_db"] > GRAPH_GATE["psnr_db"]
+                    and rec["final_loss_rel"] <= GRAPH_GATE["loss_rtol"])):
+            raise AssertionError(f"graphs job {name}: {rec}")
+    return dict(LAUNCHES)  # ---- and ends here ----
+
+
+def executor_pair(params):
+    """Two jobs of two buckets (512x512 and 384x512 contents) at once
+    through Executor (two at a time, as config.simultaneous_tasks_count
+    sets), each against its solo graphed run. The solo runs go first, so
+    the Executor's jobs find their graphs captured and replay them
+    concurrently (`overlapped`: each job reported a chunk before the
+    other's last)."""
+    import numpy as np
+
+    from artstyletransfer_tpu_torch import config as config_mod
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.transfer import (
+        ContentStylePair, TransferJob)
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.runtime.executor import Executor
+
+    cfg = Config(levels_num=2, base_diameter=256, iters_num=40,
+                 stream_every=5, optimizer="adam")
+    pairs = {}
+    for i, tid in enumerate(("square", "wide")):
+        content, style = synthetic_pair(seed=40 + i)
+        if tid == "wide":
+            content = content[64:448]
+        pairs[tid] = (content, style)
+    solo = {tid: list(TransferJob(c, s_img, cfg, params=params,
+                                  device="cuda").run())[-1][1]
+            for tid, (c, s_img) in pairs.items()}
+    stamps = {tid: [] for tid in pairs}
+
+    async def report(task_id, result):
+        stamps[task_id].append((time.time(), result[0], result[1]))
+
+    async def go():
+        from functools import partial
+
+        from artstyletransfer_tpu_torch.engine.transfer import (
+            neural_style_transfer)
+
+        ex = Executor(cfg, report_progress=report, verbose=False,
+                      engine=partial(neural_style_transfer, params=params),
+                      device="cuda")
+        for tid, (c, s_img) in pairs.items():
+            await ex.add_task(tid, ContentStylePair(("c", c), ("s", s_img)))
+        await ex.run()
+        if ex.failures:
+            raise next(iter(ex.failures.values()))
+
+    reset_launches()  # ---- this run of the path starts here ----
+    asyncio.run(go())
+    launches = dict(LAUNCHES)  # ---- and ends here ----
+    a, b = stamps["square"], stamps["wide"]
+    rec = dict(phase="graphs", run="executor",
+               simultaneous_tasks=config_mod.simultaneous_tasks_count,
+               overlapped=bool(a and b and a[0][0] < b[-1][0]
+                               and b[0][0] < a[-1][0]))
+    ok = True
+    for tid in pairs:
+        if not stamps[tid] or stamps[tid][-1][1] < 100.0:
+            raise AssertionError(f"executor {tid} did not complete")
+        img = stamps[tid][-1][2]
+        rec[tid] = dict(shape=list(img.shape),
+                        bit_equal=bool(np.array_equal(img, solo[tid])),
+                        psnr_db=psnr(img, solo[tid]))
+        ok = ok and (rec[tid]["bit_equal"]
+                     or rec[tid]["psnr_db"] > GRAPH_GATE["psnr_db"])
+    emit(rec)
+    RECORD.setdefault("graphs", []).append(rec)
+    if not ok:
+        raise AssertionError(f"graphs executor: {rec}")
+    return launches
+
+
+def warmup_then_queue(params):
+    """warmup_aspect_buckets over every DEFAULT_ASPECT_BUCKETS bucket at
+    sizes 1, 2, 4, 8 (one step each) from an empty graph cache: graphs
+    captured, seconds, seconds per capture, peak memory; then a padded
+    queue round of the same config over three buckets (sizes 4, 1 and 2
+    after padding), which must capture nothing."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine import graphs, transfer
+    from artstyletransfer_tpu_torch.engine.warmup import (
+        warmup_aspect_buckets)
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.parallel import run_job_queue
+    from artstyletransfer_tpu_torch.parallel.batch import (
+        DEFAULT_ASPECT_BUCKETS)
+
+    cfg = Config(levels_num=2, base_diameter=256, iters_num=4,
+                 stream_every=2, optimizer="adam")
+    sizes = (1, 2, 4, 8)
+    transfer._COMPILE_CACHE.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    paths = {}
+    reset_launches()  # ---- this run of the path starts here ----
+    t0 = time.time()
+    n = warmup_aspect_buckets(cfg, params=params, verbose=False, steps=1,
+                              batch_sizes=sizes, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    paths["graphs_warmup"] = dict(LAUNCHES)  # ---- and ends here ----
+    entries = [transfer._COMPILE_CACHE[k]
+               for k in list(transfer._COMPILE_CACHE._d)]
+    rec = dict(phase="graphs", run="warmup",
+               buckets=len(DEFAULT_ASPECT_BUCKETS), sizes=list(sizes),
+               graphs=n, cached=len(entries), seconds=seconds,
+               capture_s=[e.capture_s for e in entries],
+               mean_capture_s=float(np.mean([e.capture_s
+                                             for e in entries])),
+               base_mem_gb=base_gb,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    jobs = []
+    for i, (h, w) in enumerate([(512, 512)] * 3 + [(384, 512), (600, 340),
+                                                   (620, 350)]):
+        content, style = synthetic_pair(seed=60 + i, size=max(h, w))
+        jobs.append((f"q{i}", content[:h, :w], style))
+    before = graphs.CAPTURES
+    reset_launches()  # ---- this run of the path starts here ----
+    results, failures = run_job_queue(jobs, cfg, params=params,
+                                      canonicalize_contents=True,
+                                      canonicalize_styles=True,
+                                      pad_batches=True, device="cuda")
+    torch.cuda.synchronize()
+    paths["graphs_queue_after_warmup"] = dict(LAUNCHES)  # -- ends here --
+    rec["queue_captures"] = graphs.CAPTURES - before
+    rec["queue_shapes"] = sorted({tuple(img.shape) for img in
+                                  results.values()})
+    emit(rec)
+    RECORD.setdefault("graphs", []).append(rec)
+    if failures:
+        raise next(iter(failures.values()))
+    if not (n == len(DEFAULT_ASPECT_BUCKETS) * len(sizes)
+            and rec["queue_captures"] == 0 and len(results) == len(jobs)
+            and all(np.isfinite(img).all() for img in results.values())):
+        raise AssertionError(f"graphs warmup: {rec}")
+    return paths
+
+
+def phase_graphs():
+    """Graph replay against eager (see the module docstring)."""
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+
+    content, style = synthetic_pair()
+    params = init_vgg19_params(seed=0)
+    cfg = lbfgs_cfg()
+    for lanes in (1, LANES):
+        def make(graphed, lanes=lanes):
+            if lanes == 1:
+                return TransferJob(content, style, cfg, params=params,
+                                   device="cuda", graphs=graphed)
+            return BatchedTransferJob([content] * lanes, [style] * lanes,
+                                      cfg, params=params, device="cuda",
+                                      graphs=graphed)
+        eval_check(f"lanes{lanes}", make(False), make(True), cfg)
+    paths = {"graphs_job": job_runs(content, style, params),
+             "graphs_executor": executor_pair(params)}
+    paths.update(warmup_then_queue(params))
+    for path, launches in paths.items():
+        check_launches(path, launches)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1493,6 +1853,7 @@ def main() -> int:
     paths.update(phase_queue())
     paths.update(phase_lbfgs_state())
     paths.update(phase_resume())
+    paths.update(phase_graphs())
     summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi

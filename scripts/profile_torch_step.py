@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_step.py [--steps 10] [--size 512]
         [--lanes 1] [--t-init lr] [--precision default]
-        [--lbfgs-grams recompute] [--lbfgs-state-dtype float32]
+        [--lbfgs-grams recompute] [--lbfgs-state-dtype float32] [--eager]
 
 Builds the port's smoke job on the card (2 pyramid levels, full-width
 VGG19 with seeded weights, seeded synthetic size x size images) — with
@@ -12,7 +12,9 @@ queue's unit of work) — runs a few warm-up steps of Adam and of L-BFGS
 (--t-init: the first line-search trial, 'lr' or 'unit'; the batched queue
 batches 'unit'; --lbfgs-grams and --lbfgs-state-dtype: the L-BFGS state
 options), then traces `--steps` steps of each with torch.profiler
-(CUDA activity) and prints one JSON line per optimizer:
+(CUDA activity) and prints one JSON line per optimizer. Each evaluation
+replays the job's captured CUDA graph (the port's default on CUDA);
+--eager runs it eagerly (graphs=False) instead:
 
 - host wall ms per step over `--steps` untraced steps (and job-steps/s:
   lanes over it), and device-busy ms per step over as many traced ones
@@ -27,7 +29,13 @@ options), then traces `--steps` steps of each with torch.profiler
   convolutions): the L-BFGS history contractions and the bicubic
   pyramid resize;
 - kernel_launches_per_step: the CUDA kernels the traced window ran (its
-  kernel events, memory copies and sets left out) over its steps;
+  kernel events, memory copies and sets left out) over its steps, which a
+  graph does not reduce; host_launches_per_step: the runtime calls that
+  launched them from the host (a cudaGraphLaunch counts once; null when
+  the profiler recorded no runtime calls); host_wait_ms_per_step: the
+  host's time inside the runtime's copies and synchronisations (a
+  device->host read waits there for the device), so that the wall less
+  it is the host's own work;
 - evals_per_step (traced window) and evals_per_step_untraced: loss and
   gradient evaluations per step, from the port's launch counters (one TV
   forward per level and evaluation; a lane's line search may take more
@@ -57,6 +65,9 @@ OWN = {"gram_partial_kernel": "gram", "gram_reduce_kernel": "gram",
        "gram_bwd_kernel": "gram_bwd", "tv_fwd_kernel": "tv",
        "tv_bwd_kernel": "tv_bwd", "tv_partial_kernel": "tv",
        "tv_final_kernel": "tv", "conv3x3_relu_kernel": "conv_relu"}
+# runtime calls in which the host waits for the device
+HOST_WAITS = ("cudaMemcpy", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
 LIBRARY = ("conv", "cudnn", "xmma", "gemm", "sm90", "sm80", "cutlass",
            "implicit", "winograd", "fft")
 
@@ -90,6 +101,7 @@ def profile(job, steps: int, warmup: int):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from artstyletransfer_tpu_torch.kernels import LAUNCHES
+    from chip_smoke import host_launches
 
     def evals():
         # one TV forward launch per level and loss evaluation
@@ -116,7 +128,6 @@ def profile(job, steps: int, warmup: int):
     groups = {"cudnn_cublas": 0.0, "gram": 0.0, "gram_bwd": 0.0, "tv": 0.0,
               "tv_bwd": 0.0, "conv_relu": 0.0, "other": 0.0}
     kernels = []
-    launches = 0
     matmul_ms = 0.0
     for evt in prof.key_averages():
         us = _device_us(evt)
@@ -126,8 +137,9 @@ def profile(job, steps: int, warmup: int):
         if _is_cublas_matmul(evt.key):
             matmul_ms += us / 1e3
         kernels.append((us / 1e3, evt.count, evt.key))
-        if not evt.key.startswith(("Memcpy", "Memset")):
-            launches += evt.count
+    host, launches = host_launches(prof)
+    wait_ms = sum(evt.cpu_time_total for evt in prof.key_averages()
+                  if evt.key.startswith(HOST_WAITS)) / 1e3
     busy_ms = sum(groups.values())
     # the traced window's span on the device's timeline, first kernel
     # start to last kernel end: busy and span come from the same window
@@ -146,6 +158,8 @@ def profile(job, steps: int, warmup: int):
         device_ms_per_step={k: v / steps for k, v in groups.items()},
         cublas_matmul_ms_per_step=matmul_ms / steps,
         kernel_launches_per_step=launches / steps,
+        host_launches_per_step=None if host is None else host / steps,
+        host_wait_ms_per_step=wait_ms / steps,
         top_kernels=[dict(name=k[:90], ms_per_step=ms / steps,
                           calls_per_step=n / steps)
                      for ms, n, k in kernels[:15]])
@@ -169,6 +183,8 @@ def main() -> int:
                     default="recompute")
     ap.add_argument("--lbfgs-state-dtype", choices=["float32", "bfloat16"],
                     default="float32")
+    ap.add_argument("--eager", action="store_true",
+                    help="evaluate eagerly instead of by CUDA graph replay")
     args = ap.parse_args()
 
     from chip_smoke import synthetic_pair
@@ -188,15 +204,17 @@ def main() -> int:
                      conv_precision=args.precision,
                      lbfgs_grams=args.lbfgs_grams,
                      lbfgs_state_dtype=args.lbfgs_state_dtype)
+        graphs = False if args.eager else None
         if args.lanes > 1:
             job = BatchedTransferJob([content] * args.lanes,
                                      [style] * args.lanes, cfg, params=params,
-                                     device="cuda")
+                                     device="cuda", graphs=graphs)
         else:
             job = TransferJob(content, style, cfg, params=params,
-                              device="cuda")
+                              device="cuda", graphs=graphs)
         prof = profile(job, args.steps, args.warmup)
         rec = dict(script="profile_torch_step", gpu=smi, size=args.size,
+                   graphs=not args.eager,
                    optimizer=optimizer, lanes=args.lanes, t_init=args.t_init,
                    precision=args.precision, lbfgs_grams=args.lbfgs_grams,
                    lbfgs_state_dtype=args.lbfgs_state_dtype, steps=args.steps,
