@@ -4,13 +4,14 @@ Improved Gatys style transfer (multi-resolution pyramid loss, structured
 style-derived noise initialization, Adam or strong-Wolfe L-BFGS) running
 on an NVIDIA H100 through PyTorch, with hand-written CUDA kernels for the
 Gram matrix, its backward, the total-variation sums and the fused 3x3
-conv + bias + ReLU (kernels/), and a batched job queue (parallel/).
+conv + bias + ReLU (kernels/), a batched job queue (parallel/) and live
+serving with chunk-boundary joins (parallel/live.py, runtime/online.py).
 
 The JAX package ``artstyletransfer_tpu`` is the reference this package is
 tested against; this package never imports it, nor JAX. Entry points
 (TransferJob, neural_style_transfer, Executor, BatchedTransferJob,
-run_job_queue, the CLIs) run on CUDA unless the caller passes
-device='cpu'.
+run_job_queue, LiveBatchRunner, OnlineBatchingExecutor, the CLIs) run on
+CUDA unless the caller passes device='cpu'.
 """
 
 __version__ = "0.1.0"

@@ -44,7 +44,7 @@ Two state options of the JAX package (its TPU production settings):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -310,7 +310,9 @@ def _wolfe_search(f0: np.float32, g0, gtd0: np.float32, d_norm: np.float32,
 @dataclasses.dataclass
 class LaneLbfgsState:
     """LbfgsState with a leading lane axis; the host scalars become (B,)
-    numpy arrays, and n_iter is shared (the lanes step together)."""
+    numpy arrays. n_iter is an int while the lanes step together; a live
+    batch (parallel/live.py), whose lanes joined at different steps,
+    carries a (B,) array."""
 
     s_hist: torch.Tensor  # (B, m, n) float32 or bfloat16
     y_hist: torch.Tensor  # (B, m, n) float32 or bfloat16
@@ -319,7 +321,7 @@ class LaneLbfgsState:
     f: np.ndarray         # (B,) float32
     g: torch.Tensor       # (B, n)
     n_evals: np.ndarray   # (B,) int64
-    n_iter: int
+    n_iter: Union[int, np.ndarray]
     sy_gram: Optional[torch.Tensor] = None  # (B, m, m) carried S Yᵀ
     yy_gram: Optional[torch.Tensor] = None  # (B, m, m) carried Y Yᵀ
 
@@ -337,6 +339,8 @@ class LaneLbfgsState:
         self.count = self.count[lanes]
         self.f = self.f[lanes]
         self.n_evals = self.n_evals[lanes]
+        if isinstance(self.n_iter, np.ndarray):
+            self.n_iter = self.n_iter[lanes]
 
 
 def lane_init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,
@@ -385,7 +389,8 @@ def lane_state_specs(b: int, n: int, history: int, track_grams: bool,
 
 
 def state_leaves(state: LaneLbfgsState) -> Dict[str, torch.Tensor]:
-    """The named leaves of a lane state (lane_state_specs's names)."""
+    """The named leaves of a lane state (lane_state_specs's names; a live
+    batch's per-lane n_iter is a (B,) leaf, which no checkpoint takes)."""
     leaves = {"s_hist": state.s_hist, "y_hist": state.y_hist,
               "rho": state.rho}
     if state.sy_gram is not None:
@@ -408,14 +413,17 @@ def state_from_leaves(leaves: Dict[str, torch.Tensor],
         count=leaves["count"].numpy().astype(np.int64),
         f=leaves["f"].numpy().astype(_f32), g=dev("g"),
         n_evals=leaves["n_evals"].numpy().astype(np.int64),
-        n_iter=int(leaves["n_iter"]), sy_gram=dev("sy_gram"),
+        n_iter=(int(leaves["n_iter"]) if leaves["n_iter"].dim() == 0
+                else leaves["n_iter"].numpy().astype(np.int64)),
+        sy_gram=dev("sy_gram"),
         yy_gram=dev("yy_gram"))
 
 
 def _lane_view(state: LaneLbfgsState, b: int) -> LbfgsState:
     return LbfgsState(state.s_hist[b], state.y_hist[b], state.rho[b],
                       int(state.count[b]), state.f[b], state.g[b],
-                      int(state.n_evals[b]), state.n_iter,
+                      int(state.n_evals[b]),
+                      int(np.broadcast_to(state.n_iter, state.count.shape)[b]),
                       None if state.sy_gram is None else state.sy_gram[b],
                       None if state.yy_gram is None else state.yy_gram[b])
 
@@ -534,8 +542,9 @@ def lane_lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor,
     # meaningfully negative: that lane's step is a no-op
     skip = dphi0 > -_TOL_CHANGE
     t0 = np.empty((nb,), _f32)
+    first = np.broadcast_to(np.asarray(state.n_iter) == 0, (nb,))
     for b in range(nb):
-        if state.n_iter == 0:
+        if first[b]:
             t0[b] = lr[b] * min(_f32(1.0),
                                 _f32(1.0) / max(_f32(g_l1[b]), _f32(1e-20)))
         else:

@@ -304,13 +304,34 @@ def _lr_per_eval(cfg: Config, n_evals: int, step: int) -> np.float32:
     return np.float32(cfg.lr_start * np.power(np.float32(cfg.lr_decay), expo))
 
 
+def _host_steps(leaf: torch.Tensor):
+    """A step-counter leaf on the host: an int (0-d, shared by the lanes)
+    or a (B,) int64 array (one count per lane)."""
+    return (int(leaf) if leaf.dim() == 0
+            else leaf.cpu().numpy().astype(np.int64))
+
+
+def _per_lane(values, fn, device):
+    """fn of each lane's value (values an int or a (B,) array): a Python
+    float when every lane holds the same value (the scalar path, whose
+    bits the batched queue and the goldens pin), else a (B, 1) float32
+    tensor on `device`."""
+    v = np.asarray(values)
+    if (v == v.flat[0]).all():
+        return float(fn(int(v.flat[0])))
+    return torch.tensor(np.array([fn(int(e)) for e in v.ravel()], np.float32),
+                        device=device).unsqueeze(1)
+
+
 class _Adam:
     """optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) then x -= lr * update
     (torch Adam's defaults, reference neural_style_transfer.py:134).
     Elementwise, so it serves a (B, n) stack of lanes as it is: per-lane
-    moments, one shared step counter (the JAX package's vmapped
-    ``batched_chunk``). leaves: a checkpoint's state (leaf_specs's names)
-    to continue from instead of zeros."""
+    moments, and a bias-correction count that is an int while the lanes
+    step together (the JAX package's vmapped ``batched_chunk``) or a (B,)
+    array in a live batch whose lanes joined at different steps
+    (``batched_chunk_steps``). leaves: a checkpoint's state (leaf_specs's
+    names), or a live transplant's, to continue from instead of zeros."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -325,7 +346,7 @@ class _Adam:
         else:
             self.mu = leaves["mu"].to(x.device)
             self.nu = leaves["nu"].to(x.device)
-            self.count = int(leaves["count"])
+            self.count = _host_steps(leaves["count"])
 
     @staticmethod
     def leaf_specs(cfg: Config, b: int, n: int) -> Dict[str, torch.Tensor]:
@@ -338,16 +359,21 @@ class _Adam:
         return {"mu": self.mu, "nu": self.nu,
                 "count": torch.tensor(self.count, dtype=torch.int64)}
 
-    def step(self, x: torch.Tensor, step: int):
+    def step(self, x: torch.Tensor, step):
+        """One update of every lane; step is the 0-based step of all lanes
+        (an int) or of each lane (a (B,) array)."""
         f, g = self.loss_grad(x)
         b1, b2 = self.b1, self.b2
         self.mu = (1 - b1) * g + b1 * self.mu
         self.nu = (1 - b2) * (g * g) + b2 * self.nu
-        self.count += 1
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(self.count))
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(self.count))
+        self.count = self.count + 1
+        bc1 = _per_lane(self.count, lambda c: np.float32(1.0)
+                        - np.float32(b1) ** np.float32(c), x.device)
+        bc2 = _per_lane(self.count, lambda c: np.float32(1.0)
+                        - np.float32(b2) ** np.float32(c), x.device)
+        lr = _per_lane(step, lambda s: _lr_at(self.cfg, s), x.device)
         update = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + self.eps)
-        return x - float(_lr_at(self.cfg, step)) * update, f
+        return x - lr * update, f
 
     def select(self, lanes) -> None:
         """Keep (and repeat) the given lanes of the moments, in place."""
@@ -355,6 +381,8 @@ class _Adam:
                               device=self.mu.device)
         self.mu = self.mu.index_select(0, idx)
         self.nu = self.nu.index_select(0, idx)
+        if isinstance(self.count, np.ndarray):
+            self.count = self.count[lanes]
 
 
 class _Lbfgs:
@@ -392,13 +420,16 @@ class _Lbfgs:
     def leaves(self) -> Dict[str, torch.Tensor]:
         return lbfgs_mod.state_leaves(self.state)
 
-    def step(self, x: torch.Tensor, step: int):
+    def step(self, x: torch.Tensor, step):
+        """One L-BFGS iteration of every lane; step as _Adam.step's."""
         cfg = self.cfg
+        steps = np.broadcast_to(np.asarray(step), (x.shape[0],))
         if cfg.lr_decay_per_eval:
-            lr = np.array([_lr_per_eval(cfg, n, step)
-                           for n in self.state.n_evals], np.float32)
+            lr = np.array([_lr_per_eval(cfg, n, int(s))
+                           for n, s in zip(self.state.n_evals, steps)],
+                          np.float32)
         else:
-            lr = np.full((x.shape[0],), _lr_at(cfg, step), np.float32)
+            lr = np.array([_lr_at(cfg, int(s)) for s in steps], np.float32)
         x, self.state = lbfgs_mod.lane_lbfgs_step(
             self.loss_grad, x, self.state, lr,
             max_ls_steps=cfg.lbfgs_max_ls_steps,

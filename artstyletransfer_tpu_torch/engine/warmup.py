@@ -7,11 +7,11 @@ CUDA graph (engine/graphs.py), which costs two eager evaluations and a
 capture at the first request of its key. Serving frontends canonicalize
 incoming images to the standard aspect buckets (parallel/batch.py), so a
 warmup that runs one chunk per bucket and batch size leaves the first
-user nothing to capture.
-
-Not ported: ``warm_live_chunk`` (the per-lane-step chunk that live
-serving dispatches) waits for ``parallel/live.py``. The port runs one
-card: a mesh raises, as it does in parallel/batch.py.
+user nothing to capture. A live chunk (parallel/live.py) replays the same
+(bucket, lanes) graph, so the batched warmup covers live serving too;
+``warm_live_chunk`` is called only where the live path engages (the
+'batched' policy route; the JAX package calls it for every config). The
+port runs one card: a mesh raises, as it does in parallel/batch.py.
 """
 
 from __future__ import annotations
@@ -81,13 +81,15 @@ def warmup_aspect_buckets(cfg: Config, params=None,
     batch_sizes warms BatchedTransferJob at each of those sizes instead
     (one graph per (bucket, size)), plus the smaller sizes its
     convergence shrinking can reach (warm_shrink_graphs; nothing unless
-    cfg.stop_tol and cfg.stop_shrink are set). Pass the sizes online
-    serving pads its rounds to (online_warmup_plan). mesh must be None
-    (one card). Runs on CUDA unless device='cpu'.
+    cfg.stop_tol and cfg.stop_shrink are set) and, for a 'batched'-policy
+    config, the evaluation a live chunk replays (warm_live_chunk). Pass
+    the sizes online serving pads its rounds to (online_warmup_plan).
+    mesh must be None (one card). Runs on CUDA unless device='cpu'.
     """
     _not_ported(mesh, False)
     before = graphs.CAPTURES
     k = steps if steps is not None else cfg.stream_every
+    live = resolve_batch_policy(cfg) == "batched"
     for aspect in aspects:
         h, w = bucket_content_shape(aspect, cfg)
         content = np.full((h, w, 3), 0.5, np.float32)
@@ -106,6 +108,8 @@ def warmup_aspect_buckets(cfg: Config, params=None,
                 pass
             if size is not None:
                 job.warm_shrink_graphs()
+                if live:  # the evaluation a live chunk replays
+                    job.warm_live_chunk(k)
             if verbose:
                 tag = "" if size is None else f" batch={size}"
                 print(f"warmup: aspect {aspect:.3f} ({h}x{w}){tag} ready "

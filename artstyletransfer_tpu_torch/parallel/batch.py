@@ -8,7 +8,9 @@ axis; the port writes that axis out as a leading lane axis B through the
 whole step (engine/transfer.py): every VGG pass, Gram and TV kernel launch
 serves all lanes at once, every loss is a (B,) vector reduced inside its
 lane, Adam keeps per-lane moments under one step counter, and L-BFGS runs
-the lanes' line searches in lockstep (engine/lbfgs.py lane forms).
+the lanes' line searches in lockstep (engine/lbfgs.py lane forms). A live
+batch (parallel/live.py) steps each lane from its own start step
+(``chunk_steps``; the JAX package's ``batched_chunk_steps``).
 
 Shape bucketing: a batch requires identical content shapes and identical
 style shapes across jobs. ``bucket_jobs`` groups an arbitrary job queue
@@ -73,6 +75,24 @@ def _select_targets(targets, idx: torch.Tensor):
     return tuple((content.index_select(0, idx),
                   tuple(g.index_select(0, idx) for g in grams))
                  for content, grams in targets)
+
+
+def lane_leaves(opt, batch: int) -> Dict[str, torch.Tensor]:
+    """An optimizer's named leaves (its leaf_specs's names: Adam's
+    mu/nu/count, the whole L-BFGS lane state) with every leaf on a leading
+    lane axis: a counter the lanes share (0-d) is spread over `batch`
+    lanes."""
+    return {name: leaf.expand(batch) if leaf.dim() == 0 else leaf
+            for name, leaf in opt.leaves().items()}
+
+
+def _gather_rows(leaves: Dict[str, torch.Tensor],
+                 rows: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Rows `rows` of every lane-axis leaf, each copied on its own device
+    (the JAX package's _gather_rows over a batch's state)."""
+    return {name: leaf.index_select(0, torch.as_tensor(
+                list(rows), dtype=torch.long, device=leaf.device))
+            for name, leaf in leaves.items()}
 
 
 def shrink_target(n_still: int, jobs_axis: int = 1) -> int:
@@ -191,6 +211,44 @@ class BatchedTransferJob:
                 eval_graph(self, _select_targets(self.targets, idx),
                            self._x0[:size])
         return graphs_mod.CAPTURES - before
+
+    def warm_live_chunk(self, n_steps: int) -> int:
+        """Make sure the evaluation that a live chunk of this batch size
+        replays exists (parallel/live.py). The JAX package compiles a
+        per-lane-step chunk here; the port's live chunk replays the same
+        (bucket, lanes) graph run() captures, whatever n_steps. Returns
+        how many graphs it captured: 0 after a run() of this batch, and
+        0 with graphs off."""
+        del n_steps  # one captured evaluation serves every chunk length
+        if not self.graphs:
+            return 0
+        before = graphs_mod.CAPTURES
+        with precision_gate(self.cfg.conv_precision):
+            eval_graph(self, self.targets, self._x0)
+        return graphs_mod.CAPTURES - before
+
+    def init_opt(self, x: torch.Tensor,
+                 leaves: Optional[Dict[str, torch.Tensor]] = None):
+        """The optimizer of x's (B, n) lanes against this batch's targets
+        (the JAX package's _init_fn: L-BFGS evaluates x once), or one that
+        continues from `leaves` (lane_leaves's form) without evaluating."""
+        opt_cls = _Adam if self.cfg.optimizer == "adam" else _Lbfgs
+        with precision_gate(self.cfg.conv_precision):
+            return opt_cls(self._loss_grad, x, self.cfg, leaves)
+
+    def chunk_steps(self, x: torch.Tensor, opt, start_steps: np.ndarray,
+                    n_steps: int):
+        """n_steps optimizer steps of every lane, lane b from its own
+        0-based step start_steps[b] (the JAX package's _chunk_steps_fn,
+        its vmapped batched_chunk_steps): each lane keeps its own lr
+        schedule and Adam bias correction. With a uniform vector this is
+        run()'s chunk bit for bit. Returns (x, the (B,) losses at the
+        chunk's last step)."""
+        steps = np.asarray(start_steps, np.int64)
+        with precision_gate(self.cfg.conv_precision):
+            for i in range(n_steps):
+                x, f = opt.step(x, steps + i)
+        return x, f
 
     @torch.no_grad()
     def initial_losses(self) -> np.ndarray:

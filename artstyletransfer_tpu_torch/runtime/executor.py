@@ -83,6 +83,29 @@ def prune_progress(progress: dict, failures: dict, live=None) -> None:
             progress.pop(key)
 
 
+def call_in_loop(loop, coro, timeout_s: float = 60.0) -> bool:
+    """Run `coro` on `loop` from a worker thread and wait, bounded.
+
+    The thread-to-loop progress hop of batched queue callbacks (the online
+    executor reports from the run_in_executor worker that drives the
+    card). Returns False, dropping the update, when the loop is shutting
+    down: a loop that is stopped but not yet closed never runs the
+    coroutine, and an unbounded result() would hang the worker thread at
+    interpreter exit. Any other failure propagates to the caller."""
+    from concurrent.futures import TimeoutError as FuturesTimeout
+
+    try:
+        fut = asyncio.run_coroutine_threadsafe(coro, loop)
+    except RuntimeError:
+        coro.close()  # never scheduled: suppress the un-awaited warning
+        return False
+    try:
+        fut.result(timeout=timeout_s)
+    except (RuntimeError, FuturesTimeout):
+        return False
+    return True
+
+
 def _get_semaphore() -> asyncio.Semaphore:
     """Global concurrency cap (reference task_executor.py:9), created lazily
     and re-bound whenever the running event loop changes: a semaphore created

@@ -98,6 +98,21 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               1, 2, 4 and 8 (graphs, seconds per capture, peak memory),
               then a padded queue round over three buckets that must
               capture nothing.
+9. online   — live serving (parallel/live.py, runtime/online.py). The
+              buckets it uses are warmed first (2 levels, 512 px, sizes
+              1, 2, 4, 8); then OnlineBatchingExecutor(device="cuda")
+              serves, with the counters zeroed before and read after:
+              Adam, 3 jobs in the 512x512 bucket, then 2 more and 1 in
+              the 384x512 bucket once the first progress arrives; unit
+              L-BFGS with carried Grams, 2 jobs and 1 joiner. Printed:
+              each newcomer's seconds to its first progress, each
+              rebuild's ms and device memory (allocated before and after,
+              peak), the live batches' job-steps/s beside run_job_queue's
+              on the same Adam jobs, and the graphs captured, which must
+              be 0. Held: every task finishes with losses finite and
+              falling; no plain kernel version runs; a job that joined
+              mid-flight at conv_precision="highest" ends within PSNR
+              50 dB and loss rtol 1e-3 of the same job run alone.
 
 Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
@@ -1837,6 +1852,418 @@ def phase_graphs():
     return paths
 
 
+ONLINE_ADAM = dict(levels_num=2, base_diameter=256, optimizer="adam",
+                   iters_num=20, stream_every=5)
+ONLINE_LBFGS = dict(levels_num=2, base_diameter=256, optimizer="lbfgs",
+                    lbfgs_t_init="unit", lbfgs_grams="incremental",
+                    iters_num=10, stream_every=2)
+
+
+class LiveProbe:
+    """Wraps LiveBatchRunner.step and ._rebuild for one session: the
+    seconds, batch and job-steps of every chunk, and each rebuild's ms
+    (with the ms of its BatchedTransferJob's construction: every lane's
+    host pyramids and the targets) and device memory (allocated before
+    and after, peak during; the peak counter is reset at each rebuild
+    and each step)."""
+
+    def __init__(self, iters):
+        self.iters = iters
+        self.steps, self.rebuilds, self.peaks = [], [], []
+        self._done = {}  # tid -> steps reported so far
+
+    def __enter__(self):
+        import torch
+
+        from artstyletransfer_tpu_torch.parallel import batch, live
+
+        cls = live.LiveBatchRunner
+        self._saved = (cls.step, cls._rebuild, batch.BatchedTransferJob)
+        real_step, real_rebuild, real_batch = self._saved
+        probe = self
+        constructs = []
+
+        class TimedBatch(real_batch):
+            def __init__(self, *a, **kw):
+                t0 = time.perf_counter()
+                super().__init__(*a, **kw)
+                torch.cuda.synchronize()
+                constructs.append((time.perf_counter() - t0) * 1e3)
+
+        def gb(fn):
+            return fn() / 1e9
+
+        def rebuild(runner, joins):
+            torch.cuda.synchronize()
+            before = (len(runner._lane_tid), gb(torch.cuda.memory_allocated))
+            torch.cuda.reset_peak_memory_stats()
+            constructs.clear()
+            t0 = time.perf_counter()
+            out = real_rebuild(runner, joins)
+            torch.cuda.synchronize()
+            probe.rebuilds.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                construct_ms=sum(constructs), lanes_before=before[0],
+                lanes_after=len(runner._lane_tid), joined=len(joins),
+                alloc_before_gb=before[1],
+                alloc_after_gb=gb(torch.cuda.memory_allocated),
+                peak_gb=gb(torch.cuda.max_memory_allocated)))
+            probe.peaks.append(probe.rebuilds[-1]["peak_gb"])
+            return out
+
+        def step(runner):
+            n_rebuilds = len(probe.rebuilds)
+            t0 = time.perf_counter()
+            rep = real_step(runner)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            probe.peaks.append(gb(torch.cuda.max_memory_allocated))
+            torch.cuda.reset_peak_memory_stats()
+            job_steps = 0
+            for tid, pct, _img, _loss in rep.progress:
+                now = round(pct * probe.iters / 100.0)
+                job_steps += now - probe._done.get(tid, 0)
+                probe._done[tid] = now
+            probe.steps.append(dict(
+                s=seconds, batch=rep.batch, lanes=len(rep.progress),
+                job_steps=job_steps,
+                rebuilt=len(probe.rebuilds) > n_rebuilds))
+            return rep
+
+        cls.step, cls._rebuild = step, rebuild
+        batch.BatchedTransferJob = TimedBatch
+        return self
+
+    def __exit__(self, *exc):
+        from artstyletransfer_tpu_torch.parallel import batch, live
+
+        (live.LiveBatchRunner.step, live.LiveBatchRunner._rebuild,
+         batch.BatchedTransferJob) = self._saved
+
+    def steady_rate(self, batch):
+        """Job-steps/s of the chunks at `batch` lanes that rebuilt
+        nothing."""
+        sel = [r for r in self.steps if r["batch"] == batch
+               and not r["rebuilt"]]
+        secs = sum(r["s"] for r in sel)
+        return sum(r["job_steps"] for r in sel) / secs if secs else None
+
+
+class PlainSpy:
+    """Counts calls of the kernels' plain versions while active."""
+
+    NAMES = [("gram", "gram_plain"), ("gram", "gram_bwd_plain"),
+             ("tv", "tv_plain"), ("tv", "tv_bwd_plain"),
+             ("tv", "tv_sums_plain")]
+
+    def __enter__(self):
+        import importlib
+
+        self.calls = {}
+        self._saved = []
+        for mod_name, fn in self.NAMES:
+            mod = importlib.import_module(
+                "artstyletransfer_tpu_torch.kernels." + mod_name)
+            real = getattr(mod, fn)
+            self._saved.append((mod, fn, real))
+
+            def spy(*a, _real=real, _fn=fn, **kw):
+                self.calls[_fn] = self.calls.get(_fn, 0) + 1
+                return _real(*a, **kw)
+
+            setattr(mod, fn, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, real in self._saved:
+            setattr(mod, fn, real)
+
+
+def online_session(cfg, first, later, params, wait_for=1,
+                   canonicalize=True):
+    """OnlineBatchingExecutor on the card: `first` jobs added at once,
+    `later` once `wait_for` progress reports have arrived. Returns (the
+    executor, {tid: seconds added -> first progress}, {tid: [(percent,
+    loss)]}, {tid: final image}, session wall s)."""
+    from artstyletransfer_tpu_torch.engine.transfer import ContentStylePair
+    from artstyletransfer_tpu_torch.runtime.online import (
+        OnlineBatchingExecutor)
+
+    added, first_seen, losses, finals = {}, {}, {}, {}
+
+    class Metrics:
+        def log(self, event, task=None, percent=None, loss=None, **_kw):
+            if event == "progress":
+                first_seen.setdefault(task, time.perf_counter())
+                losses.setdefault(task, []).append((percent, loss))
+
+    async def report(tid, value):
+        if value[0] >= 100.0:
+            finals[tid] = value[1]
+
+    async def go():
+        ex = OnlineBatchingExecutor(cfg, params=params, verbose=False,
+                                    metrics=Metrics(), report_progress=report,
+                                    max_batch=16, canonicalize=canonicalize,
+                                    device="cuda")
+        for tid, c, s_img in first:
+            added[tid] = time.perf_counter()
+            await ex.add_task(tid, ContentStylePair(("c", c), ("s", s_img)))
+        while sum(len(v) for v in losses.values()) < wait_for:
+            await asyncio.sleep(0.001)
+        for tid, c, s_img in later:
+            added[tid] = time.perf_counter()
+            await ex.add_task(tid, ContentStylePair(("c", c), ("s", s_img)))
+        await ex.run()
+        await ex.aclose()
+        return ex
+
+    t0 = time.perf_counter()
+    ex = asyncio.run(go())
+    wall = time.perf_counter() - t0
+    if ex.failures:
+        raise next(iter(ex.failures.values()))
+    wait = {tid: first_seen[tid] - added[tid] for tid in added}
+    return ex, wait, losses, finals, wall
+
+
+def online_jobs():
+    """Adam: 5 jobs with 512x512 contents and 1 with a 384x512 content;
+    L-BFGS: 3 jobs with 512x512 contents; seeded synthetic images, the
+    styles squared to the base diameter as the executor's canonicalizer
+    does (so the solo check below sees the executor's inputs)."""
+    adam = []
+    for i in range(6):
+        content, _ = synthetic_pair(seed=70 + i)
+        _, style = synthetic_pair(seed=170 + i, size=256)
+        if i == 5:
+            content = content[64:448]
+        adam.append((f"adam{i}", content, style))
+    lbfgs = []
+    for i in range(3):
+        content, _ = synthetic_pair(seed=80 + i)
+        _, style = synthetic_pair(seed=180 + i, size=256)
+        lbfgs.append((f"lbfgs{i}", content, style))
+    return adam, lbfgs
+
+
+# the joined-against-alone check's jobs: B joins after A's second chunk
+# and runs 2 steps beside A, then 4 alone
+SOLO_CHECK = dict(iters_num=6, stream_every=2)
+
+
+def solo_runs(content, style, cfg, params, n=2):
+    """n TransferJob runs of one job: [(final image, final loss)]."""
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+
+    out = []
+    for _ in range(n):
+        job = TransferJob(content, style, cfg, params=params, device="cuda")
+        _done, img, loss = list(job.run())[-1]
+        out.append((img, float(loss)))
+    return out
+
+
+def online_solo_check(params, adam, lbfgs):
+    """A job joined mid-flight against the same job run alone, at
+    conv_precision='highest', for Adam and unit L-BFGS (6 steps, chunk
+    2): job B (added, canonicalized already, once A's first chunk is
+    reported) joins A's batch at A's next boundary and must run a chunk
+    beside A; B alone is a TransferJob whose init noise has the seed the
+    live runner gave B (cfg.seed + 1, its arrival). cuDNN's float32
+    algorithms are not deterministic by default (two runs of one job
+    part), so this check runs with torch.backends.cudnn.deterministic
+    set, and B alone runs twice, which must agree bit for bit. A control
+    without joins: B as lane 1 of a 2-lane BatchedTransferJob from step
+    0. Held for Adam: PSNR > 50 dB and loss within rtol 1e-3 of B alone.
+    Unit L-BFGS's line search branches on float32 comparisons, so a lane
+    count's other summation order can send it another way: reported
+    beside its control. Then, with cuDNN's default algorithms, two plain
+    runs of the sessions' 20-step Adam job at 'highest': how far a job
+    parts from itself (reported)."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.init_pipeline import (
+        build_init_image)
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+    from artstyletransfer_tpu_torch.parallel.batch import (
+        canonicalize_content, canonicalize_style)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, kw, jobs in (("adam", ONLINE_ADAM, adam),
+                               ("lbfgs_unit", ONLINE_LBFGS, lbfgs)):
+            kw = dict(kw, **SOLO_CHECK)
+            cfg = Config(conv_precision="highest", **kw)
+            canon = [(canonicalize_content(c, cfg),
+                      canonicalize_style(s_, cfg)) for _t, c, s_ in jobs[:2]]
+            (ta, _ca, _sa), (tb, _cb, _sb) = jobs[:2]
+            with LiveProbe(cfg.iters_num) as probe:
+                _ex, _wait, losses, finals, _wall = online_session(
+                    cfg, [(ta,) + canon[0]], [(tb,) + canon[1]], params,
+                    canonicalize=False)
+            beside = sum(r["lanes"] == 2 for r in probe.steps)
+            runs = solo_runs(*canon[1], Config(conv_precision="highest",
+                                               seed=cfg.seed + 1, **kw),
+                             params)
+            img, loss = runs[0]
+            inits = [build_init_image(
+                cfg.init_method, c, s_, cfg,
+                rng=np.random.default_rng(cfg.seed + i))[0]
+                for i, (c, s_) in enumerate(canon)]
+            pair = BatchedTransferJob([c for c, _s in canon],
+                                      [s_ for _c, s_ in canon], cfg,
+                                      params=params, init_overrides=inits,
+                                      device="cuda")
+            _done, imgs, pair_losses = list(pair.run())[-1]
+            joined_loss = losses[tb][-1][1]
+            rec = dict(phase="online", run="joined_vs_solo", optimizer=name,
+                       steps=cfg.iters_num, precision="highest",
+                       cudnn_deterministic=True, chunks_beside_a=beside,
+                       batches=[r["batch"] for r in probe.steps],
+                       psnr_db=psnr(finals[tb], img),
+                       bit_equal=bool(np.array_equal(finals[tb], img)),
+                       joined_loss=joined_loss, solo_loss=loss,
+                       loss_rel=abs(joined_loss / loss - 1.0),
+                       solo_rerun_bit_equal=bool(
+                           np.array_equal(runs[0][0], runs[1][0])
+                           and runs[0][1] == runs[1][1]),
+                       batched_lane_psnr_db=psnr(imgs[1], img),
+                       batched_lane_loss_rel=abs(
+                           float(pair_losses[1]) / loss - 1.0))
+            emit(rec)
+            RECORD.setdefault("online", []).append(rec)
+            if not (rec["solo_rerun_bit_equal"] and beside
+                    and (name != "adam" or (rec["psnr_db"] > 50.0
+                                            and rec["loss_rel"] <= 1e-3))):
+                raise AssertionError(
+                    f"online: joined job against alone: {rec}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _t, c, s_ = adam[1]
+    cfg = Config(conv_precision="highest", seed=1, **ONLINE_ADAM)
+    (ia, la), (ib, lb) = solo_runs(canonicalize_content(c, cfg),
+                                   canonicalize_style(s_, cfg), cfg, params)
+    rec = dict(phase="online", run="solo_rerun", optimizer="adam",
+               steps=cfg.iters_num, precision="highest",
+               cudnn_deterministic=deterministic,
+               bit_equal=bool(np.array_equal(ia, ib) and la == lb),
+               psnr_db=psnr(ia, ib), loss_rel=abs(la / lb - 1.0))
+    emit(rec)
+    RECORD.setdefault("online", []).append(rec)
+
+
+def phase_online():
+    """Live serving on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine import graphs
+    from artstyletransfer_tpu_torch.engine.pyramid import level_shape
+    from artstyletransfer_tpu_torch.engine.warmup import (
+        warmup_aspect_buckets)
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.parallel import run_job_queue
+    from artstyletransfer_tpu_torch.parallel.batch import (
+        bucket_content_shape, canonicalize_content, canonicalize_style)
+
+    params = init_vgg19_params(seed=0)
+    adam_jobs, lbfgs_jobs = online_jobs()
+    # (name, config, first jobs, later jobs, buckets, lanes they reach)
+    sessions = [("adam", Config(**ONLINE_ADAM), adam_jobs[:3],
+                 adam_jobs[3:], (1.0, 4 / 3), (1, 2, 4, 8)),
+                ("lbfgs_unit", Config(**ONLINE_LBFGS), lbfgs_jobs[:2],
+                 lbfgs_jobs[2:], (1.0,), (1, 2, 4))]
+    t0 = time.time()
+    warmed = sum(warmup_aspect_buckets(cfg, params=params, aspects=aspects,
+                                       verbose=False, steps=1,
+                                       batch_sizes=sizes, device="cuda")
+                 for _name, cfg, _f, _l, aspects, sizes in sessions)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    captures = graphs.CAPTURES
+    paths = {}
+    for name, cfg, first, later, _aspects, _sizes in sessions:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # ---- this run of the path starts here ----
+        with LiveProbe(cfg.iters_num) as probe, PlainSpy() as plain:
+            ex, wait, losses, finals, wall = online_session(
+                cfg, first, later, params, wait_for=len(first))
+            torch.cuda.synchronize()
+        launches = dict(LAUNCHES)  # ---- and ends here ----
+        paths[f"online_{name}"] = launches
+        check_launches(f"online {name}", launches)
+        jobs = first + later
+        job_steps = len(jobs) * cfg.iters_num
+        rec = dict(phase="online", run="session", optimizer=name,
+                   jobs=len(jobs), joiners=[t for t, _c, _s in later],
+                   steps=cfg.iters_num, wall_s=wall,
+                   job_steps_per_s=job_steps / wall,
+                   first_progress_s=wait,
+                   newcomer_first_progress_s={t: wait[t]
+                                              for t, _c, _s in later},
+                   rebuilds=probe.rebuilds,
+                   batches=[r["batch"] for r in probe.steps],
+                   steady_job_steps_per_s={
+                       str(b): probe.steady_rate(b)
+                       for b in sorted({r["batch"] for r in probe.steps})},
+                   peak_mem_gb=max(probe.peaks),
+                   graphs_captured=graphs.CAPTURES - captures,
+                   plain_calls=plain.calls, launches=launches,
+                   losses={t: [v[0][1], v[-1][1]]
+                           for t, v in losses.items()})
+        if name == "adam":
+            # run_job_queue on the same jobs, padded as online rounds pad
+            canon = [(t, canonicalize_content(c, cfg),
+                      canonicalize_style(s_img, cfg))
+                     for t, c, s_img in jobs]
+            events = []
+
+            def progress(tid, pct, img, loss):
+                events.append((time.time(), tid, pct, loss))
+
+            tq = time.perf_counter()
+            _res, fails = run_job_queue(canon, cfg, params=params,
+                                        progress=progress, pad_batches=True,
+                                        device="cuda")
+            torch.cuda.synchronize()
+            if fails:
+                raise next(iter(fails.values()))
+            rec["queue_wall_s"] = time.perf_counter() - tq
+            rec["queue_job_steps_per_s"] = job_steps / rec["queue_wall_s"]
+            rec["queue_chunk_rates"] = chunk_rates(canon, events, cfg)
+        rec["final_shapes"] = {t: list(img.shape) for t, img in finals.items()}
+        emit(rec)
+        RECORD.setdefault("online", []).append(rec)
+        for tid, c, _s in jobs:
+            img = finals.get(tid)
+            rep = [loss for _p, loss in losses.get(tid, [])]
+            top = level_shape(*bucket_content_shape(c.shape[1] / c.shape[0],
+                                                    cfg),
+                              cfg.levels_num - 1, cfg.base_diameter) + (3,)
+            if img is None or img.shape != top or not np.isfinite(img).all():
+                raise AssertionError(f"online {name} {tid}: no final image "
+                                     f"of shape {top}")
+            if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
+                raise AssertionError(f"online {name} {tid}: losses {rep} "
+                                     "are not finite and falling")
+        if rec["graphs_captured"] or plain.calls:
+            raise AssertionError(f"online {name}: captured "
+                                 f"{rec['graphs_captured']} graphs, plain "
+                                 f"calls {plain.calls}")
+        captures = graphs.CAPTURES
+    online_solo_check(params, adam_jobs, lbfgs_jobs)
+    RECORD.setdefault("online", []).append(dict(warm_graphs=warmed,
+                                                warm_s=warm_s))
+    emit(dict(phase="online", run="warmup", graphs=warmed, seconds=warm_s))
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1854,6 +2281,7 @@ def main() -> int:
     paths.update(phase_lbfgs_state())
     paths.update(phase_resume())
     paths.update(phase_graphs())
+    paths.update(phase_online())
     summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi

@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 15
     for module in ("parallel/batch.py", "frontends/queue_cli.py",
                    "kernels/conv_relu.py", "ops/conv_relu.py",
-                   "engine/checkpoint.py"):
+                   "engine/checkpoint.py", "parallel/live.py",
+                   "runtime/online.py"):
         assert os.path.join(PORT, module) in files, module
     offenders = []
     for path in files:
