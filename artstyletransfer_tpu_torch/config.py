@@ -201,22 +201,31 @@ def production_config(base: Config | None = None, device=None) -> Config:
     return cfg
 
 
-_TF32 = {"default": True, "high": True, "highest": False}
+# conv_precision -> (cudnn.allow_tf32, cudnn.deterministic) while a job of
+# it holds the gate; None leaves that switch as it was
+_CUDNN = {"default": (True, None), "high": (True, None),
+          "highest": (False, True)}
 
 
 class _PrecisionGate:
-    """Who runs device work, and with which cuDNN TF32 setting.
+    """Who runs device work, and with which cuDNN settings.
 
-    torch.backends.cudnn.allow_tf32 is one switch for the whole process,
-    and the executor runs jobs in several threads at once. A job holds
-    the gate around each unit of device work (never across a yield), and
-    while it is held the switch has the holder's value: jobs of the same
-    conv_precision hold it together, a job of another one waits until no
-    job holds it. Waiting jobs enter in their order of arrival, so none
-    starves. A thread that holds the gate enters it again at once (its own
-    precision) or raises (another one): it never waits while it holds it,
-    so the executor's thread pool cannot deadlock. The switch gets back its
-    value from before when the last holder leaves.
+    torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.deterministic
+    are switches for the whole process, and the executor runs jobs in
+    several threads at once. A job holds the gate around each unit of
+    device work (never across a yield), and while it is held the switches
+    have the holder's values: jobs of the same conv_precision hold it
+    together, a job of another one waits until no job holds it. Waiting
+    jobs enter in their order of arrival, so none starves. A thread that
+    holds the gate enters it again at once (its own precision) or raises
+    (another one): it never waits while it holds it, so the executor's
+    thread pool cannot deadlock. The switches get back their values from
+    before when the last holder leaves.
+
+    'highest' also turns on cuDNN's deterministic algorithms: its default
+    float32 ones sum in an order that varies from run to run, and two runs
+    of one job parted on the card (PERF.md §6). TF32 jobs keep the switch
+    as it was.
     """
 
     def __init__(self):
@@ -224,11 +233,11 @@ class _PrecisionGate:
         self._precision = None  # of the holders; None while nobody holds
         self._depth: Dict[int, int] = {}  # holding thread -> nesting depth
         self._queue: Deque[object] = collections.deque()  # waiters, FIFO
-        self._saved = False
+        self._saved = (False, False)  # the switches from before
 
     @contextlib.contextmanager
     def hold(self, precision: str):
-        if precision not in _TF32:
+        if precision not in _CUDNN:
             raise ValueError(f"unknown conv_precision {precision!r}")
         me = threading.get_ident()
         with self._cond:
@@ -249,8 +258,11 @@ class _PrecisionGate:
                     self._cond.notify_all()  # the next in line may enter too
                 if self._precision is None:
                     self._precision = precision
-                    self._saved = torch.backends.cudnn.allow_tf32
-                    torch.backends.cudnn.allow_tf32 = _TF32[precision]
+                    cudnn = torch.backends.cudnn
+                    self._saved = (cudnn.allow_tf32, cudnn.deterministic)
+                    cudnn.allow_tf32, cudnn.deterministic = (
+                        old if new is None else new
+                        for old, new in zip(self._saved, _CUDNN[precision]))
             self._depth[me] = self._depth.get(me, 0) + 1
         try:
             yield
@@ -260,9 +272,17 @@ class _PrecisionGate:
                 if not self._depth[me]:
                     del self._depth[me]
                 if not self._depth:
-                    torch.backends.cudnn.allow_tf32 = self._saved
+                    (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cudnn.deterministic) = self._saved
                     self._precision = None
                     self._cond.notify_all()
+
+    def held(self):
+        """The precision the calling thread holds the gate at, or None."""
+        with self._cond:
+            if threading.get_ident() in self._depth:
+                return self._precision
+            return None
 
 
 _GATE = _PrecisionGate()
@@ -271,10 +291,17 @@ _GATE = _PrecisionGate()
 def precision_gate(precision: str):
     """Context manager around one unit of a job's device work: cuDNN's
     convolutions run in TF32 for 'default' and 'high' and in full float32
-    for 'highest' (see _PrecisionGate). Matmuls always run in full float32:
-    the port never sets torch.backends.cuda.matmul.allow_tf32. Raises
-    ValueError for an unknown precision."""
+    for 'highest', which also runs cuDNN's deterministic algorithms (see
+    _PrecisionGate). Matmuls always run in full float32: the port never
+    sets torch.backends.cuda.matmul.allow_tf32. Raises ValueError for an
+    unknown precision."""
     return _GATE.hold(precision)
+
+
+def held_precision():
+    """The conv_precision the calling thread holds precision_gate at, or
+    None outside the gate."""
+    return _GATE.held()
 
 
 def resolve_device(device=None) -> torch.device:

@@ -46,7 +46,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, precision_gate, resolve_device
+from ..config import Config, held_precision, precision_gate, resolve_device
 from ..models.vgg19 import CONTENT_INDEX, STYLE_INDICES, extract_features
 from ..models.weights import shared_params
 from ..ops.gram import gram_matrix
@@ -235,12 +235,20 @@ def eval_graph(job, targets, x: torch.Tensor) -> graphs_mod.EvalGraph:
     a CUDA graph on the card, the eager test seam on the CPU. The key is
     the engine config's fingerprint (_config_key, also the checkpoints'
     own) extended by the lanes, the device and the identity of the
-    weights the graph binds."""
+    weights the graph binds. cuDNN picks its algorithms when the graph is
+    captured, so a capture on the card raises unless the calling thread
+    holds precision_gate at the job's conv_precision."""
     key = _config_key(job.cfg, job.level_shapes) + (
         x.shape[0], str(job.device), id(job.params))
     with _cache_lock:
         if key in _COMPILE_CACHE:
             return _COMPILE_CACHE[key]
+        if (job.device.type == "cuda"
+                and held_precision() != job.cfg.conv_precision):
+            raise RuntimeError(
+                f"a {job.cfg.conv_precision!r} evaluation captured outside "
+                "precision_gate would keep the cuDNN algorithms of whatever "
+                "settings were current")
         capture = (graphs_mod.cuda_capture if job.device.type == "cuda"
                    else graphs_mod.eager_capture)
         entry = graphs_mod.EvalGraph(_eval_body(job._loss_fn, job.params),

@@ -31,16 +31,19 @@ from .transfer import TransferJob
 
 
 def warmup_serving(cfg: Config, online: bool,
-                   aspects: Optional[Sequence[float]] = None) -> int:
+                   aspects: Optional[Sequence[float]] = None,
+                   device=None) -> int:
     """The frontends' shared --warmup entry point: capture every serving
     aspect bucket's evaluation; with online batching, at every batch size
     online rounds dispatch (online_warmup_plan). Returns the number of
-    graphs captured. `aspects` narrows the bucket list (tests)."""
+    graphs captured. `aspects` narrows the bucket list (tests). Runs on
+    CUDA unless device='cpu', the device the frontend serves on."""
     sizes = None
     if online:
         sizes, _mesh = online_warmup_plan(cfg, None)
     kwargs = {} if aspects is None else {"aspects": aspects}
-    return warmup_aspect_buckets(cfg, batch_sizes=sizes, **kwargs)
+    return warmup_aspect_buckets(cfg, batch_sizes=sizes, device=device,
+                                 **kwargs)
 
 
 def online_warmup_plan(cfg: Config, mesh, batch_policy: str = "auto",

@@ -126,8 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the job runs (default cuda)")
     p.add_argument("--weights", default=None,
-                   help="VGG19 weights .npz; default: env "
-                        "ASTT_VGG19_WEIGHTS or the seeded init")
+                   help="VGG19 weights (.npz, torchvision .pth or "
+                        "Keras .h5); default: env ASTT_VGG19_WEIGHTS, the "
+                        "weights cache, or the seeded init")
     p.add_argument("--save-progress", action="store_true",
                    help="also save intermediate images next to the output")
     p.add_argument("--verbose-losses", action="store_true",

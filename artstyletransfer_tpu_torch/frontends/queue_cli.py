@@ -72,8 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="crop contents to canonical aspect buckets "
                         "(bounds the number of batch shapes)")
     p.add_argument("--weights", default=None,
-                   help="VGG19 weights .npz; default: env "
-                        "ASTT_VGG19_WEIGHTS or the seeded init")
+                   help="VGG19 weights (.npz, torchvision .pth or "
+                        "Keras .h5); default: env ASTT_VGG19_WEIGHTS, the "
+                        "weights cache, or the seeded init")
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                    help="crash recovery: one checkpoint per group in DIR")
     p.add_argument("--checkpoint-every", type=int, default=None,

@@ -26,9 +26,13 @@ Scheduling (batch_join=True, the default):
 
 Divergences from the JAX package (deliberate; ROADMAP Queue 3): the live
 path honours `retries` (a failed bucket's tasks are resubmitted fresh up
-to `retries` times before their failures are recorded), and an error
-outside a chunk fails every task the live drive holds and drops its
-runners, where the JAX package fails only the tasks it drained first.
+to `retries` times before their failures are recorded), and it waits
+`retry_delay_s` before each resubmission, as the round path's
+run_job_queue waits between its attempts (the JAX live path has no
+retries at all); the wait is scheduled on the event loop, so the other
+buckets' chunks and new arrivals go on meanwhile. An error outside a
+chunk fails every task the live drive holds and drops its runners, where
+the JAX package fails only the tasks it drained first.
 Runs on CUDA unless device='cpu' is passed; a mesh raises
 NotImplementedError (one card).
 """
@@ -62,6 +66,7 @@ class OnlineBatchingExecutor:
                  batch_policy: str = "auto",
                  pad_batches: bool = True,
                  retries: int = 0,
+                 retry_delay_s: float = 25.0,
                  stream_images: bool = True,
                  queue_runner: Optional[Callable] = None,
                  batch_join: bool = True,
@@ -87,8 +92,10 @@ class OnlineBatchingExecutor:
         self.canonicalize = canonicalize
         self.batch_policy = batch_policy
         self.pad_batches = pad_batches
-        # re-run a failed round's (or live bucket's) jobs
+        # re-run a failed round's (or live bucket's) jobs, each attempt
+        # retry_delay_s after the failure (run_job_queue's default)
         self.retries = retries
+        self.retry_delay_s = retry_delay_s
         # stream_images=False: intermediate progress carries images=None
         # (final images are still delivered)
         self.stream_images = stream_images
@@ -104,6 +111,9 @@ class OnlineBatchingExecutor:
         self.__dispatcher: Optional[asyncio.Task] = None
         self.__busy = False
         self.__round_ids: frozenset = frozenset()  # tasks in flight
+        # live retries waiting out retry_delay_s: asyncio task -> the
+        # tasks it puts back in the pending list
+        self.__delayed: Dict[asyncio.Task, list] = {}
         self.failures: Dict[str, BaseException] = {}
         self.dispatch_rounds = 0  # observability: rounds actually run
 
@@ -134,6 +144,8 @@ class OnlineBatchingExecutor:
             # and only an eviction heuristic
             live = {tid for tid, _c, _s in self.__pending}
             live.update(self.__round_ids)
+            live.update(tid for tasks in self.__delayed.values()
+                        for tid, _c, _s in tasks)
             live.add(key)
             prune_progress(self.__progress, self.failures, live)
 
@@ -246,6 +258,7 @@ class OnlineBatchingExecutor:
                 mesh=self.mesh, progress=progress_cb,
                 batch_policy=self.batch_policy, max_batch=self.max_batch,
                 pad_batches=self.pad_batches, retries=self.retries,
+                retry_delay_s=self.retry_delay_s,
                 stream_images=self.stream_images,
                 # shapes were canonicalized at add_task
                 canonicalize_styles=False, canonicalize_contents=False,
@@ -277,9 +290,11 @@ class OnlineBatchingExecutor:
         Between chunks the pending list is drained again, so tasks that
         arrived during a chunk join their bucket's batch at the very next
         boundary (or start a new bucket's runner). A runner whose step
-        raises gives back its tasks: each is resubmitted fresh while it
-        has retries left (self.retries), else its failure is recorded;
-        other buckets run on.
+        raises gives back its tasks: each is resubmitted fresh,
+        retry_delay_s later, while it has retries left (self.retries),
+        else its failure is recorded; other buckets run on meanwhile, and
+        with nothing else to run the drive waits for the resubmission or
+        a new arrival.
 
         Global lane budget: concurrent runners hold their batch states on
         the card at once, so jobs enter runners first in, first out only
@@ -341,8 +356,13 @@ class OnlineBatchingExecutor:
                 if not active:
                     async with self.__pending_lock:
                         drained = not self.__pending
-                    if drained:
+                    if drained and not self.__delayed:
                         break
+                    if drained:
+                        # only delayed retries are left: wait for one of
+                        # them, or a new arrival, to fill the pending list
+                        await self.__wake.wait()
+                        self.__wake.clear()
                     continue
                 self.__round_ids = frozenset(
                     tid for _k, r in active for tid in r.all_tids)
@@ -352,7 +372,7 @@ class OnlineBatchingExecutor:
                     report = await loop.run_in_executor(None, runner.step)
                 except Exception as e:  # noqa: BLE001 — bucket isolation
                     del self._runners[key]
-                    await requeue(await self._retry_or_fail(
+                    self._requeue_later(await self._retry_or_fail(
                         runner.take_all(), attempts, held, e))
                     continue
                 for tid in report.joined:
@@ -372,6 +392,7 @@ class OnlineBatchingExecutor:
                         print(f"Task {tid} done")
         except Exception as e:  # noqa: BLE001 — keep serving
             traceback.print_exc()
+            self._cancel_delayed()
             for runner in self._runners.values():
                 runner.take_all()
             self._runners.clear()
@@ -395,9 +416,33 @@ class OnlineBatchingExecutor:
                 await self._record_failure(tid, exc)
         if retry:
             print(f"online: live bucket failed ({type(exc).__name__}: "
-                  f"{exc}); resubmitting {len(retry)} task(s)",
-                  file=sys.stderr)
+                  f"{exc}); resubmitting {len(retry)} task(s) in "
+                  f"{self.retry_delay_s:g} s", file=sys.stderr)
         return retry
+
+    def _requeue_later(self, tasks):
+        """Put a failed bucket's retried tasks back in the pending list
+        retry_delay_s from now, without holding up the dispatch loop."""
+        if not tasks:
+            return
+
+        async def requeue():
+            await asyncio.sleep(self.retry_delay_s)
+            async with self.__pending_lock:
+                self.__pending.extend(tasks)
+                self.__delayed.pop(waiter, None)
+            self.__wake.set()
+
+        waiter = asyncio.get_running_loop().create_task(requeue())
+        self.__delayed[waiter] = tasks
+
+    def _cancel_delayed(self):
+        """Cancel the waiting live retries; returns their asyncio tasks."""
+        waiters = list(self.__delayed)
+        for waiter in waiters:
+            waiter.cancel()
+        self.__delayed.clear()
+        return waiters
 
     async def _report(self, tid, pct, img, loss):
         await self.set_progress(tid, (pct, img))
@@ -422,8 +467,10 @@ class OnlineBatchingExecutor:
     async def aclose(self):
         """Cancel the dispatcher task cleanly (harnesses and short-lived
         embedders; the serving frontends keep dispatching for the process
-        lifetime). Queued but unstarted jobs are dropped; call run()
-        first to drain."""
+        lifetime). Queued but unstarted jobs are dropped, and so are live
+        retries still waiting out retry_delay_s; call run() first to
+        drain."""
+        await asyncio.gather(*self._cancel_delayed(), return_exceptions=True)
         if self.__dispatcher is not None and not self.__dispatcher.done():
             self.__dispatcher.cancel()
             try:

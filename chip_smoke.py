@@ -74,13 +74,16 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               beside its bandwidth bound;
 7. resume   — a bf16 carried-Gram L-BFGS job runs 6 steps, twice without a
               break, then with a checkpoint every 3 steps, stopped after
-              step 3 and resumed; the same with a 4-lane batch that
+              step 3 and resumed, at the default precision and at
+              conv_precision="highest"; the same with a 4-lane batch that
               shrinks at step 2 (stop_tol, stop_shrink: two lanes hold a
               black image, whose loss and gradient are exactly 0). The
               loaded state must equal the saved one bit for bit, and the
-              resumed run the uninterrupted one: bit for bit when the two
-              uninterrupted runs agree bit for bit, else within twice
-              their spread (the record then names the cause);
+              resumed run the uninterrupted one: at 'highest' the two
+              uninterrupted runs and the resumed one bit for bit; at the
+              default precision bit for bit when the two uninterrupted
+              runs agree bit for bit, else within twice their spread (the
+              record then names the cause);
 8. graphs   — the compiled step (engine/graphs.py). Phases 4-7 already
               evaluate by CUDA graph replay (the default on CUDA); here
               graphed and eager (graphs=False) meet. One evaluation at
@@ -112,24 +115,57 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               be 0. Held: every task finishes with losses finite and
               falling; no plain kernel version runs; a job that joined
               mid-flight at conv_precision="highest" ends within PSNR
-              50 dB and loss rtol 1e-3 of the same job run alone.
+              50 dB and loss rtol 1e-3 of the same job run alone; two
+              runs of one job at 'highest' agree bit for bit through
+              precision_gate alone (Adam and unit L-BFGS; the runs at
+              'default' are reported); and what cuDNN's deterministic
+              algorithms cost one 512 px evaluation (device ms, with the
+              switch on and off, at 'highest' and at 'default').
+10. frontends — the web lab and the Telegram bot (frontends/lab.py,
+              tlbot.py) on CUDA, both resolving their VGG19 weights from
+              a torchvision-layout .pth of the seeded weights named by
+              ASTT_VGG19_WEIGHTS (load_vgg19_params() must give the
+              seeded arrays bit for bit; the file and the weights cache
+              live in the gitignored .smoke_weights/, removed after use).
+              The lab's core (Lab) with its default online executor
+              serves four demo pairs (three 512x512, one 384x512) at the
+              standard preset cut to 10 steps, through the round path;
+              the progress table is polled to 100%, and each task's
+              latest image is fetched through the code /generated/<id>
+              runs, and / and /generated/<id> through the aiohttp app
+              on a test server. The bot, with an
+              in-script transport, online batching and Adam (40 steps),
+              after warmup_serving of the square bucket, serves two
+              albums and a third sent once the first progress photo
+              went out. Printed: each request's seconds to first
+              progress and to done, each album's seconds to its first
+              photo and to "Done!", job-steps/s, dispatch rounds, peak
+              memory. Held: the kernels' launches (conv_relu 0), no plain
+              kernel version, each album's transcript ("Processing has
+              started", progress captions, one "Done!", no apology),
+              final images finite and of their bucket's top-level shape,
+              losses finite and falling. The image files are JPEG
+              through OpenCV; OpenCV, aiohttp and jinja2 must import.
 
 Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
 lines are the card's nvidia-smi line, the `kernels` summary and
 {"ok": true, "device": {...}}. All images are numpy arrays made from
-seeds (no image files, no OpenCV). A full record of every measurement is
-also written to chiprun_out/chip_smoke.json.
+seeds (the frontends phase writes them to JPEG files). A
+full record of every measurement is also written to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1377,13 +1413,16 @@ def same_as_saved(path, saved, specs):
                     for k, v in saved["aux"].items()))
 
 
-def resume_verdict(name, a, b, r):
+def resume_verdict(name, a, b, r, precision="default"):
     """a, b: (images, losses) of two uninterrupted runs; r: the resumed
-    run's. Bit-equal when a and b are; else within twice their spread."""
+    run's. At 'highest' (cuDNN's deterministic algorithms, through
+    precision_gate) a and b must agree bit for bit and r with them. At a
+    TF32 precision r must equal a bit for bit when a and b do; else
+    within twice their spread (the record then names the cause)."""
     import numpy as np
 
     det = np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
-    rec = dict(uninterrupted_bit_equal=bool(det),
+    rec = dict(precision=precision, uninterrupted_bit_equal=bool(det),
                resumed_bit_equal=bool(np.array_equal(a[0], r[0])
                                       and np.array_equal(a[1], r[1])),
                spread_img=float(np.abs(a[0] - b[0]).max()),
@@ -1391,14 +1430,14 @@ def resume_verdict(name, a, b, r):
                spread_loss=float(np.abs(np.asarray(a[1]) - b[1]).max()),
                resumed_vs_first_loss=float(np.abs(np.asarray(a[1])
                                                   - r[1]).max()))
-    if not det:
-        rec["cause"] = ("two uninterrupted runs differ on the card: cuDNN's "
-                        "convolution algorithms are not deterministic "
-                        "(torch.backends.cudnn.deterministic is off)")
+    if det or precision == "highest":
+        ok = det and rec["resumed_bit_equal"]
+    else:
+        rec["cause"] = ("two uninterrupted runs differ on the card: at a "
+                        "TF32 precision precision_gate leaves cuDNN's "
+                        "deterministic algorithms off")
         ok = (rec["resumed_vs_first_img"] <= 2 * rec["spread_img"]
               and rec["resumed_vs_first_loss"] <= 2 * rec["spread_loss"])
-    else:
-        ok = rec["resumed_bit_equal"]
     if not ok:
         raise AssertionError(f"resume {name}: {rec}")
     return rec
@@ -1422,35 +1461,40 @@ def phase_resume():
     paths = {}
     os.makedirs(SCRATCH, exist_ok=True)
     try:
-        # one job: 6 steps, a checkpoint every 3, resumed from step 3
-        cfg = lbfgs_cfg(iters_num=6, stream_every=3, **state)
+        # one job: 6 steps, a checkpoint every 3, resumed from step 3; at
+        # the default precision (TF32 convs) and at 'highest'
+        for precision, path_name in (("default", "resume_job"),
+                                     ("highest", "resume_job_highest")):
+            cfg = lbfgs_cfg(iters_num=6, stream_every=3,
+                            conv_precision=precision, **state)
 
-        def job():
-            return TransferJob(content, style, cfg, params=params,
-                               device="cuda")
+            def job(cfg=cfg):
+                return TransferJob(content, style, cfg, params=params,
+                                   device="cuda")
 
-        def final(it):
-            _d, img, loss = list(it)[-1]
-            return img, np.float32(loss)
+            def final(it):
+                _d, img, loss = list(it)[-1]
+                return img, np.float32(loss)
 
-        reset_launches()  # ---- this run of the path starts here ----
-        a = final(job().run())
-        paths["resume_job"] = dict(LAUNCHES)  # ---- and ends here ----
-        check_launches("resume job", paths["resume_job"])
-        b = final(job().run())
-        path = os.path.join(SCRATCH, "job.ckpt")
-        saved = checkpointed_run(job, 3, 3, path)
-        loaded_ok = same_as_saved(
-            path, saved, _Lbfgs.leaf_specs(cfg, 1, saved["x"].numel()))
-        r = final(job().run(checkpoint_path=path, checkpoint_every=3,
-                            resume=True))
-        rec = dict(phase="resume", run="job", steps=6, saved_step=3,
-                   loaded_equals_saved=loaded_ok,
-                   **resume_verdict("job", a, b, r))
-        emit(rec)
-        RECORD.setdefault("resume", []).append(rec)
-        if not loaded_ok:
-            raise AssertionError(f"resume job: loaded state differs: {rec}")
+            reset_launches()  # ---- this run of the path starts here ----
+            a = final(job().run())
+            paths[path_name] = dict(LAUNCHES)  # ---- and ends here ----
+            check_launches(path_name, paths[path_name])
+            b = final(job().run())
+            path = os.path.join(SCRATCH, f"job_{precision}.ckpt")
+            saved = checkpointed_run(job, 3, 3, path)
+            loaded_ok = same_as_saved(
+                path, saved, _Lbfgs.leaf_specs(cfg, 1, saved["x"].numel()))
+            r = final(job().run(checkpoint_path=path, checkpoint_every=3,
+                                resume=True))
+            rec = dict(phase="resume", run="job", steps=6, saved_step=3,
+                       loaded_equals_saved=loaded_ok,
+                       **resume_verdict("job", a, b, r, precision))
+            emit(rec)
+            RECORD.setdefault("resume", []).append(rec)
+            if not loaded_ok:
+                raise AssertionError(
+                    f"resume job: loaded state differs: {rec}")
 
         # four lanes that shrink at step 2: lanes 0 and 2 hold a black
         # image as content, style and start (one level, so no resize
@@ -2070,17 +2114,17 @@ def online_solo_check(params, adam, lbfgs):
     2): job B (added, canonicalized already, once A's first chunk is
     reported) joins A's batch at A's next boundary and must run a chunk
     beside A; B alone is a TransferJob whose init noise has the seed the
-    live runner gave B (cfg.seed + 1, its arrival). cuDNN's float32
-    algorithms are not deterministic by default (two runs of one job
-    part), so this check runs with torch.backends.cudnn.deterministic
-    set, and B alone runs twice, which must agree bit for bit. A control
-    without joins: B as lane 1 of a 2-lane BatchedTransferJob from step
-    0. Held for Adam: PSNR > 50 dB and loss within rtol 1e-3 of B alone.
-    Unit L-BFGS's line search branches on float32 comparisons, so a lane
-    count's other summation order can send it another way: reported
-    beside its control. Then, with cuDNN's default algorithms, two plain
-    runs of the sessions' 20-step Adam job at 'highest': how far a job
-    parts from itself (reported)."""
+    live runner gave B (cfg.seed + 1, its arrival). B alone runs twice,
+    and the two runs must agree bit for bit: precision_gate runs cuDNN's
+    deterministic algorithms at 'highest', and nothing here sets a torch
+    flag. A control without joins: B as lane 1 of a 2-lane
+    BatchedTransferJob from step 0. Held for Adam: PSNR > 50 dB and loss
+    within rtol 1e-3 of B alone. Unit L-BFGS's line search branches on
+    float32 comparisons, so a lane count's other summation order can send
+    it another way: reported beside its control. Then two plain runs of
+    the sessions' 20-step Adam job at 'highest' must agree bit for bit
+    (held), and two at 'default' (TF32, where the gate leaves cuDNN's
+    deterministic switch as it was) are reported."""
     import numpy as np
     import torch
 
@@ -2091,69 +2135,150 @@ def online_solo_check(params, adam, lbfgs):
     from artstyletransfer_tpu_torch.parallel.batch import (
         canonicalize_content, canonicalize_style)
 
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for name, kw, jobs in (("adam", ONLINE_ADAM, adam),
-                               ("lbfgs_unit", ONLINE_LBFGS, lbfgs)):
-            kw = dict(kw, **SOLO_CHECK)
-            cfg = Config(conv_precision="highest", **kw)
-            canon = [(canonicalize_content(c, cfg),
-                      canonicalize_style(s_, cfg)) for _t, c, s_ in jobs[:2]]
-            (ta, _ca, _sa), (tb, _cb, _sb) = jobs[:2]
-            with LiveProbe(cfg.iters_num) as probe:
-                _ex, _wait, losses, finals, _wall = online_session(
-                    cfg, [(ta,) + canon[0]], [(tb,) + canon[1]], params,
-                    canonicalize=False)
-            beside = sum(r["lanes"] == 2 for r in probe.steps)
-            runs = solo_runs(*canon[1], Config(conv_precision="highest",
-                                               seed=cfg.seed + 1, **kw),
-                             params)
-            img, loss = runs[0]
-            inits = [build_init_image(
-                cfg.init_method, c, s_, cfg,
-                rng=np.random.default_rng(cfg.seed + i))[0]
-                for i, (c, s_) in enumerate(canon)]
-            pair = BatchedTransferJob([c for c, _s in canon],
-                                      [s_ for _c, s_ in canon], cfg,
-                                      params=params, init_overrides=inits,
-                                      device="cuda")
-            _done, imgs, pair_losses = list(pair.run())[-1]
-            joined_loss = losses[tb][-1][1]
-            rec = dict(phase="online", run="joined_vs_solo", optimizer=name,
-                       steps=cfg.iters_num, precision="highest",
-                       cudnn_deterministic=True, chunks_beside_a=beside,
-                       batches=[r["batch"] for r in probe.steps],
-                       psnr_db=psnr(finals[tb], img),
-                       bit_equal=bool(np.array_equal(finals[tb], img)),
-                       joined_loss=joined_loss, solo_loss=loss,
-                       loss_rel=abs(joined_loss / loss - 1.0),
-                       solo_rerun_bit_equal=bool(
-                           np.array_equal(runs[0][0], runs[1][0])
-                           and runs[0][1] == runs[1][1]),
-                       batched_lane_psnr_db=psnr(imgs[1], img),
-                       batched_lane_loss_rel=abs(
-                           float(pair_losses[1]) / loss - 1.0))
-            emit(rec)
-            RECORD.setdefault("online", []).append(rec)
-            if not (rec["solo_rerun_bit_equal"] and beside
-                    and (name != "adam" or (rec["psnr_db"] > 50.0
-                                            and rec["loss_rel"] <= 1e-3))):
-                raise AssertionError(
-                    f"online: joined job against alone: {rec}")
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("cuDNN's deterministic switch is set outside "
+                             "precision_gate")
+    for name, kw, jobs in (("adam", ONLINE_ADAM, adam),
+                           ("lbfgs_unit", ONLINE_LBFGS, lbfgs)):
+        kw = dict(kw, **SOLO_CHECK)
+        cfg = Config(conv_precision="highest", **kw)
+        canon = [(canonicalize_content(c, cfg),
+                  canonicalize_style(s_, cfg)) for _t, c, s_ in jobs[:2]]
+        (ta, _ca, _sa), (tb, _cb, _sb) = jobs[:2]
+        with LiveProbe(cfg.iters_num) as probe:
+            _ex, _wait, losses, finals, _wall = online_session(
+                cfg, [(ta,) + canon[0]], [(tb,) + canon[1]], params,
+                canonicalize=False)
+        beside = sum(r["lanes"] == 2 for r in probe.steps)
+        runs = solo_runs(*canon[1], Config(conv_precision="highest",
+                                           seed=cfg.seed + 1, **kw),
+                         params)
+        img, loss = runs[0]
+        inits = [build_init_image(
+            cfg.init_method, c, s_, cfg,
+            rng=np.random.default_rng(cfg.seed + i))[0]
+            for i, (c, s_) in enumerate(canon)]
+        pair = BatchedTransferJob([c for c, _s in canon],
+                                  [s_ for _c, s_ in canon], cfg,
+                                  params=params, init_overrides=inits,
+                                  device="cuda")
+        _done, imgs, pair_losses = list(pair.run())[-1]
+        joined_loss = losses[tb][-1][1]
+        rec = dict(phase="online", run="joined_vs_solo", optimizer=name,
+                   steps=cfg.iters_num, precision="highest",
+                   determinism="precision_gate", chunks_beside_a=beside,
+                   batches=[r["batch"] for r in probe.steps],
+                   psnr_db=psnr(finals[tb], img),
+                   bit_equal=bool(np.array_equal(finals[tb], img)),
+                   joined_loss=joined_loss, solo_loss=loss,
+                   loss_rel=abs(joined_loss / loss - 1.0),
+                   solo_rerun_bit_equal=bool(
+                       np.array_equal(runs[0][0], runs[1][0])
+                       and runs[0][1] == runs[1][1]),
+                   batched_lane_psnr_db=psnr(imgs[1], img),
+                   batched_lane_loss_rel=abs(
+                       float(pair_losses[1]) / loss - 1.0))
+        emit(rec)
+        RECORD.setdefault("online", []).append(rec)
+        if not (rec["solo_rerun_bit_equal"] and beside
+                and (name != "adam" or (rec["psnr_db"] > 50.0
+                                        and rec["loss_rel"] <= 1e-3))):
+            raise AssertionError(
+                f"online: joined job against alone: {rec}")
     _t, c, s_ = adam[1]
-    cfg = Config(conv_precision="highest", seed=1, **ONLINE_ADAM)
-    (ia, la), (ib, lb) = solo_runs(canonicalize_content(c, cfg),
-                                   canonicalize_style(s_, cfg), cfg, params)
-    rec = dict(phase="online", run="solo_rerun", optimizer="adam",
-               steps=cfg.iters_num, precision="highest",
-               cudnn_deterministic=deterministic,
-               bit_equal=bool(np.array_equal(ia, ib) and la == lb),
-               psnr_db=psnr(ia, ib), loss_rel=abs(la / lb - 1.0))
-    emit(rec)
-    RECORD.setdefault("online", []).append(rec)
+    reruns = []
+    for precision in ("highest", "default"):
+        cfg = Config(conv_precision=precision, seed=1, **ONLINE_ADAM)
+        (ia, la), (ib, lb) = solo_runs(canonicalize_content(c, cfg),
+                                       canonicalize_style(s_, cfg), cfg,
+                                       params)
+        rec = dict(phase="online", run="solo_rerun", optimizer="adam",
+                   steps=cfg.iters_num, precision=precision,
+                   bit_equal=bool(np.array_equal(ia, ib) and la == lb),
+                   psnr_db=psnr(ia, ib), loss_rel=abs(la / lb - 1.0))
+        emit(rec)
+        RECORD.setdefault("online", []).append(rec)
+        reruns.append(rec)
+    if not reruns[0]["bit_equal"]:
+        raise AssertionError(f"online: two runs at 'highest' part: "
+                             f"{reruns[0]}")
+
+
+CONV_KERNEL_KEYS = ("conv", "cudnn", "xmma", "implicit", "winograd", "fft",
+                    "fprop", "dgrad", "wgrad", "sm90_", "sm80_", "cutlass")
+
+
+def _eval_device_ms(fn, reps):
+    """(all kernels, convolution kernels) device ms per call of fn, from
+    one torch.profiler session: cuDNN's kernels by their names (the port's
+    own kernels and the elementwise ones are the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = conv = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0)))
+        total += us
+        low = evt.key.lower()
+        if any(k in low for k in CONV_KERNEL_KEYS) and not any(
+                own in low for own in ("gram", "tv_fwd", "tv_bwd")):
+            conv += us
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total / 1e3 / reps, conv / 1e3 / reps
+
+
+def deterministic_cost(params, reps=5):
+    """What cuDNN's deterministic algorithms cost one eager loss-and-
+    gradient evaluation of the main job (1 lane, 2 levels, 512 px), at
+    'highest' (TF32 off) and at 'default' (TF32 on): device ms of the
+    whole evaluation and of its convolutions, with the switch on and off,
+    in the order on, off, off, on. The torch flags are set directly here,
+    outside precision_gate, and restored after."""
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+
+    content, style = synthetic_pair()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic)
+    rows = []
+    try:
+        for precision, tf32 in (("highest", False), ("default", True)):
+            cfg = Config(levels_num=2, base_diameter=256,
+                         conv_precision=precision)
+            job = TransferJob(content, style, cfg, params=params,
+                              device="cuda", graphs=False)
+            x = job._x0
+            times = {True: [], False: []}
+            for det in (True, False, False, True):
+                cudnn.allow_tf32, cudnn.deterministic = tf32, det
+                times[det].append(_eval_device_ms(
+                    lambda: job._loss_grad(x), reps))
+            row = dict(phase="online", run="deterministic_cost",
+                       precision=precision, shape=[512, 512], lanes=1,
+                       eval_ms_det=[t for t, _c in times[True]],
+                       eval_ms_default_algos=[t for t, _c in times[False]],
+                       conv_ms_det=[c for _t, c in times[True]],
+                       conv_ms_default_algos=[c for _t, c in times[False]])
+            row["conv_ms_added"] = (sum(row["conv_ms_det"])
+                                    - sum(row["conv_ms_default_algos"])) / 2
+            emit(row)
+            RECORD.setdefault("online", []).append(row)
+            rows.append(row)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = saved
+    return rows
 
 
 def phase_online():
@@ -2258,9 +2383,419 @@ def phase_online():
                                  f"calls {plain.calls}")
         captures = graphs.CAPTURES
     online_solo_check(params, adam_jobs, lbfgs_jobs)
+    deterministic_cost(params)
     RECORD.setdefault("online", []).append(dict(warm_graphs=warmed,
                                                 warm_s=warm_s))
     emit(dict(phase="online", run="warmup", graphs=warmed, seconds=warm_s))
+    return paths
+
+
+FRONTEND_DIR = os.path.join(ROOT, ".smoke_weights")  # gitignored; removed
+# the bot session: Adam, so that the live path serves it
+BOT_ADAM = dict(levels_num=2, base_diameter=256, optimizer="adam",
+                iters_num=40, stream_every=5)
+BOT_DEBOUNCE_S = 0.05  # the album debounce in the bot session (default 1 s)
+
+
+@contextlib.contextmanager
+def weights_from(pth, cache):
+    """A block in which load_vgg19_params() resolves its weights as a
+    deployment would: ASTT_VGG19_WEIGHTS names `pth`, and the weights
+    cache is the file `cache`."""
+    from artstyletransfer_tpu_torch.models import weights
+
+    with mock.patch.object(weights, "_CACHE_DIR", os.path.dirname(cache)), \
+            mock.patch.object(weights, "_CACHE_FILE", cache), \
+            mock.patch.dict(os.environ, {"ASTT_VGG19_WEIGHTS": pth}):
+        yield
+
+
+def weights_file_check(directory):
+    """The seeded weights (init_vgg19_params(seed=0)) written as a
+    torchvision-layout .pth state dict (features.<idx>.weight/bias, OIHW)
+    in `directory`, with the weights cache beside it. Holds that
+    load_vgg19_params() under weights_from gives the seeded arrays bit for
+    bit and writes the cache; returns (pth, cache)."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.models import weights
+
+    params = weights.init_vgg19_params(seed=0)
+    pth = os.path.join(directory, "vgg19.pth")
+    torch.save({f"features.{idx}.{k}": torch.from_numpy(np.ascontiguousarray(
+        np.transpose(params[name]["w"], (3, 2, 0, 1)) if k == "weight"
+        else params[name]["b"]))
+        for name, idx in weights._TORCHVISION_INDICES.items()
+        for k in ("weight", "bias")}, pth)
+    cache = os.path.join(directory, "cache", "vgg19_features.npz")
+    with weights_from(pth, cache):
+        loaded = weights.load_vgg19_params()
+    same = all(np.array_equal(loaded[n][k], params[n][k])
+               and loaded[n][k].dtype == params[n][k].dtype
+               for n in params for k in ("w", "b"))
+    rec = dict(phase="frontends", run="weights_file", file="vgg19.pth",
+               layout="torchvision", bit_equal=bool(same),
+               cached=os.path.exists(cache))
+    emit(rec)
+    RECORD.setdefault("frontends", []).append(rec)
+    if not (same and rec["cached"]):
+        raise AssertionError(f"frontends: weights from the .pth: {rec}")
+    return pth, cache
+
+
+def session_checks(name, finals, tops, losses):
+    """Every final image finite and of its bucket's top-level shape (both
+    keyed alike), and every task's losses finite and falling."""
+    import numpy as np
+
+    for key, top in tops.items():
+        img = finals.get(key)
+        if img is None or img.shape != top or not np.isfinite(img).all():
+            raise AssertionError(f"frontends {name} {key}: no final image "
+                                 f"of shape {top}")
+    for tid, rep in losses.items():
+        if not (len(rep) >= 2 and np.isfinite(rep).all()
+                and rep[-1] < rep[0]):
+            raise AssertionError(f"frontends {name} {tid}: losses {rep} "
+                                 "are not finite and falling")
+
+
+def top_shape(content, cfg):
+    """The top-level image shape of a content's serving bucket."""
+    from artstyletransfer_tpu_torch.engine.pyramid import level_shape
+    from artstyletransfer_tpu_torch.parallel.batch import bucket_content_shape
+
+    return level_shape(*bucket_content_shape(content.shape[1]
+                                             / content.shape[0], cfg),
+                       cfg.levels_num - 1, cfg.base_diameter) + (3,)
+
+
+async def fetch_through_aiohttp(lab, cfg, tids):
+    """GET / and /generated/<id> of the lab's tasks through the aiohttp
+    app on a test server (same executor): the statuses and byte counts."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from artstyletransfer_tpu_torch.frontends.lab import create_app
+
+    app = create_app(config=cfg, data_dir=lab.data_dir, pairs=[],
+                     autostart=False, executor=lab.executor, device="cuda")
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        index = await client.get("/")
+        html = await index.text()
+        out = dict(index_status=index.status,
+                   index_cards=html.count('class="card'))
+        images = [await client.get(f"/generated/{tid}") for tid in tids]
+        out["generated_status"] = [r.status for r in images]
+        out["generated_bytes"] = [len(await r.read()) for r in images]
+    finally:
+        await client.close()
+    if out["index_status"] != 200 or out["index_cards"] != len(tids) \
+            or set(out["generated_status"]) != {200}:
+        raise AssertionError(f"frontends: the lab's aiohttp app: {out}")
+    return out
+
+
+def lab_session():
+    """The lab's app-free core (frontends/lab.py Lab) with its default
+    online executor on CUDA, the standard preset (production_config:
+    2 levels, 512 px top level, full-width VGG19, the default L-BFGS with
+    the lr opening, so the round path serves it) cut to 10 steps in
+    chunks of 5; four demo pairs, three square and one 384x512."""
+    import dataclasses
+    import json
+
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import PRESETS, production_config
+    from artstyletransfer_tpu_torch.engine import graphs
+    from artstyletransfer_tpu_torch.frontends.lab import Lab
+    from artstyletransfer_tpu_torch.utils.image import (decode_image,
+                                                        save_image)
+
+    cfg = dataclasses.replace(
+        production_config(PRESETS["standard"], device="cuda"),
+        iters_num=10, stream_every=5)
+    data = FRONTEND_DIR
+    for sub in ("content-images", "style-images"):
+        os.makedirs(os.path.join(data, sub), exist_ok=True)
+    pairs, contents = [], {}
+    for i in range(4):
+        content, _ = synthetic_pair(seed=300 + i)
+        if i == 3:  # 384x512 at 512 px
+            h = content.shape[0]
+            content = content[h // 8:h - h // 8]
+        _, style = synthetic_pair(seed=400 + i)
+        c_name, s_name = f"c{i}.jpg", f"s{i}.jpg"
+        save_image(content, os.path.join(data, "content-images", c_name))
+        save_image(style, os.path.join(data, "style-images", s_name))
+        pairs.append((c_name, s_name))
+        contents[c_name] = content
+    metrics_path = os.path.join(data, "lab_metrics.jsonl")
+
+    async def go():
+        lab = Lab(config=cfg, data_dir=data, pairs=pairs, online=True,
+                  metrics_path=metrics_path, device="cuda")
+        await lab.backend_task()
+        deadline = time.time() + 300
+        while True:
+            cards = await lab.index_cards()
+            if any(c["failed"] for c in cards):
+                raise AssertionError(f"frontends lab: a failed card {cards}")
+            if len(cards) == len(pairs) and all(c["percent"] >= 100
+                                                for c in cards):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"frontends lab: cards {cards}")
+            await asyncio.sleep(0.005)
+        tids = [c["image_id"] for c in cards]
+        served = {t: decode_image(await lab.latest_jpeg(t)) for t in tids}
+        finals = {t: (await lab.executor.get_progress(t))[1] for t in tids}
+        http = await fetch_through_aiohttp(lab, cfg, tids)
+        await lab.aclose()
+        return lab, cards, served, finals, http
+
+    torch.cuda.reset_peak_memory_stats()
+    captures = graphs.CAPTURES
+    t0 = time.time()
+    lab, cards, served, finals, http = asyncio.run(go())
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with open(metrics_path) as fh:
+        events = [json.loads(line) for line in fh]
+    added = {e["task"]: e["t"] for e in events if e["event"] == "task_added"}
+    progress = {}
+    for e in events:
+        if e["event"] == "progress":
+            progress.setdefault(e["task"], []).append((e["t"], e["loss"]))
+    tids = [c["image_id"] for c in cards]
+    order = dict(zip(sorted(added, key=added.get), pairs))
+    rec = dict(phase="frontends", run="lab",
+               preset="standard", optimizer=cfg.optimizer,
+               lbfgs_t_init=cfg.lbfgs_t_init, steps=cfg.iters_num,
+               stream_every=cfg.stream_every, requests=len(tids),
+               first_progress_s={t: progress[t][0][0] - added[t]
+                                 for t in tids},
+               done_s={t: progress[t][-1][0] - added[t] for t in tids},
+               contents={t: list(contents[order[t][0]].shape[:2])
+                         for t in tids},
+               session_wall_s=wall,
+               job_steps_per_s=len(tids) * cfg.iters_num / (
+                   max(p[-1][0] for p in progress.values())
+                   - min(added.values())),
+               dispatch_rounds=lab.executor.dispatch_rounds,
+               graphs_captured=graphs.CAPTURES - captures,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               served_shapes={t: list(v.shape) for t, v in served.items()},
+               losses={t: [l for _t, l in progress[t]] for t in tids},
+               aiohttp=http)
+    tops = {t: top_shape(contents[order[t][0]], cfg) for t in tids}
+    session_checks("lab", finals, tops, rec["losses"])
+    for t in tids:
+        if served[t].shape != tops[t] or not np.isfinite(served[t]).all():
+            raise AssertionError(f"frontends lab {t}: served image "
+                                 f"{served[t].shape}, want {tops[t]}")
+    return rec
+
+
+class FakeBotClient:
+    """The bot's transport in-process (no network): scripted getUpdates
+    (two albums, then a third once the first progress photo was sent),
+    files from memory, and a record of every message and photo with its
+    time."""
+
+    def __init__(self, albums, deadline_s=300.0):
+        from artstyletransfer_tpu_torch.utils.image import encode_jpeg
+
+        self.files, self.batches = {}, []
+        for chat, (content, style) in albums.items():
+            group = []
+            for part, img in (("c", content), ("s", style)):
+                fid = f"{chat}{part}"
+                self.files[fid] = encode_jpeg(img, quality=95)
+                group.append({"chat": {"id": chat},
+                              "media_group_id": f"album{chat}",
+                              "photo": [{"file_id": fid}]})
+            self.batches.append(group)
+        self.messages, self.photos, self.delivered = [], [], {}
+        self.deadline = time.perf_counter() + deadline_s
+        self.calls = 0
+        self.timed_out = False
+
+    async def send_message(self, chat_id, text):
+        self.messages.append((chat_id, text, time.perf_counter()))
+
+    async def send_photo(self, chat_id, data, caption, filename=None):
+        from artstyletransfer_tpu_torch.utils.image import decode_image
+
+        self.photos.append((chat_id, caption, time.perf_counter(),
+                            decode_image(data)))
+
+    async def download_file(self, file_id):
+        return self.files[file_id]
+
+    async def _until(self, cond):
+        while not cond():
+            if time.perf_counter() > self.deadline:
+                self.timed_out = True
+                raise asyncio.CancelledError  # ends the polling loop
+            await asyncio.sleep(0.002)
+
+    def _updates(self, groups):
+        now = time.perf_counter()
+        out = []
+        for group in groups:
+            self.delivered[group[0]["chat"]["id"]] = now
+            for msg in group:
+                self.calls += 1
+                out.append({"update_id": self.calls, "message": msg})
+        return out
+
+    async def get_updates(self, offset, timeout=30):
+        if len(self.delivered) == 0:  # the first two albums at once
+            return self._updates(self.batches[:2])
+        if len(self.delivered) == 2:  # the third after the first photo
+            await self._until(lambda: self.photos)
+            return self._updates(self.batches[2:])
+        n = len(self.batches)
+        await self._until(lambda: sum(c == "Done!" for _ch, c, *_r
+                                      in self.photos) >= n or any(
+            "went wrong" in m for _ch, m, _t in self.messages))
+        raise asyncio.CancelledError  # every album answered: stop polling
+
+
+def bot_session():
+    """StyleTransferBot on CUDA with the fake transport, online batching
+    on and an Adam config (2 levels, 512 px, 40 steps in chunks of 5),
+    after warmup_serving of the square bucket (the bot's --warmup, on
+    CUDA): the live path serves three albums, the third arriving once the
+    first progress photo was sent."""
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config, production_config
+    from artstyletransfer_tpu_torch.engine import graphs
+    from artstyletransfer_tpu_torch.engine.warmup import warmup_serving
+    from artstyletransfer_tpu_torch.frontends import tlbot
+
+    cfg = production_config(Config(**BOT_ADAM), device="cuda")
+    t0 = time.time()
+    warmed = warmup_serving(cfg, online=True, aspects=(1.0,), device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    albums = {}
+    for chat in (1, 2, 3):
+        content, _ = synthetic_pair(seed=500 + chat)
+        _, style = synthetic_pair(seed=600 + chat)
+        albums[chat] = (content, style)
+    client = FakeBotClient(albums)
+    losses, joined = {}, {}
+
+    class Metrics:
+        def log(self, event, task=None, percent=None, loss=None, **kw):
+            if event == "progress":
+                losses.setdefault(task, []).append(loss)
+            elif event == "task_joined":
+                joined.setdefault(task, kw.get("batch"))
+
+    async def go():
+        bot = tlbot.StyleTransferBot(client, cfg, metrics=Metrics(),
+                                     online=True, device="cuda")
+        try:
+            await bot.run_polling()
+        except asyncio.CancelledError:
+            pass
+        await bot.executor.aclose()
+        return bot
+
+    torch.cuda.reset_peak_memory_stats()
+    captures = graphs.CAPTURES
+    t1 = time.time()
+    with mock.patch.object(tlbot, "MEDIA_GROUP_DEBOUNCE_S", BOT_DEBOUNCE_S):
+        bot = asyncio.run(go())
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    transcript = {}
+    for chat in albums:
+        msgs = [m for ch, m, _t in client.messages if ch == chat]
+        caps = [c for ch, c, *_r in client.photos if ch == chat]
+        times = [t for ch, _c, t, _i in client.photos if ch == chat]
+        transcript[chat] = dict(
+            messages=msgs, captions=caps,
+            first_photo_s=(times[0] - client.delivered[chat]
+                           if times else None),
+            done_s=(times[-1] - client.delivered[chat]
+                    if caps and caps[-1] == "Done!" else None))
+    rec = dict(phase="frontends", run="bot",
+               optimizer=cfg.optimizer, steps=cfg.iters_num,
+               stream_every=cfg.stream_every, debounce_s=BOT_DEBOUNCE_S,
+               warmup_graphs=warmed, warmup_s=warm_s,
+               albums=transcript, session_wall_s=wall,
+               joined_batch=joined,
+               graphs_captured=graphs.CAPTURES - captures,
+               dispatch_rounds=bot.executor.dispatch_rounds,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses={t: [v[0], v[-1]] for t, v in losses.items()},
+               timed_out=client.timed_out)
+    for chat, t in transcript.items():
+        progress_caps = [c for c in t["captions"] if c.startswith("Progress")]
+        if (t["messages"].count("Processing has started. Please, wait...")
+                != 1 or t["captions"].count("Done!") != 1
+                or t["captions"][-1] != "Done!" or not progress_caps
+                or any("went wrong" in m for m in t["messages"])):
+            raise AssertionError(f"frontends bot: chat {chat}: {t}")
+    if client.timed_out or bot.tasks_table or bot.executor.failures:
+        raise AssertionError(f"frontends bot: {rec}")
+    finals = {chat: next(i for ch, c, _t, i in client.photos
+                         if ch == chat and c == "Done!") for chat in albums}
+    tops = {chat: top_shape(albums[chat][0], cfg) for chat in albums}
+    if len(losses) != len(albums):
+        raise AssertionError(f"frontends bot: losses of {len(losses)} "
+                             f"tasks for {len(albums)} albums")
+    session_checks("bot", finals, tops, losses)
+    return rec
+
+
+def phase_frontends():
+    """The lab and the bot on the card (see the module docstring)."""
+    import shutil
+
+    import aiohttp
+    import cv2
+    import jinja2
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    rec = dict(phase="frontends", run="environment",
+               python=sys.version.split()[0], torch=torch.__version__,
+               cuda=torch.version.cuda,
+               **{m.__name__: getattr(m, "__version__", None)
+                  for m in (aiohttp, cv2, jinja2)})
+    emit(rec)
+    RECORD.setdefault("frontends", []).append(rec)
+    paths = {}
+    os.makedirs(FRONTEND_DIR, exist_ok=True)
+    try:
+        pth, cache = weights_file_check(FRONTEND_DIR)
+        with weights_from(pth, cache):
+            for name, session in (("lab", lab_session), ("bot", bot_session)):
+                reset_launches()  # ---- this run of the path starts here ----
+                with PlainSpy() as plain:
+                    rec = session()
+                launches = dict(LAUNCHES)  # ---- and ends here ----
+                paths[f"frontends_{name}"] = launches
+                rec.update(launches=launches, plain_calls=plain.calls)
+                emit(rec)
+                RECORD.setdefault("frontends", []).append(rec)
+                check_launches(f"frontends {name}", launches)
+                if plain.calls:
+                    raise AssertionError(f"frontends {name}: plain calls "
+                                         f"{plain.calls}")
+    finally:
+        shutil.rmtree(FRONTEND_DIR, ignore_errors=True)
     return paths
 
 
@@ -2282,6 +2817,7 @@ def main() -> int:
     paths.update(phase_resume())
     paths.update(phase_graphs())
     paths.update(phase_online())
+    paths.update(phase_frontends())
     summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi

@@ -7,7 +7,9 @@ progress table's copy-on-read contract is runtime/executor.py's.
 
 Also one test per fixed fault of the JAX package's executor (ROADMAP
 Queue 3): the live path honours `retries`, and an error outside a chunk
-fails every task the live drive holds instead of stranding joiners.
+fails every task the live drive holds instead of stranding joiners. A
+live retry waits retry_delay_s, as the round path's attempts do, without
+holding up the other buckets, and aclose cancels a waiting retry.
 """
 
 import asyncio
@@ -59,9 +61,11 @@ class FakeQueueRunner:
 
     def __call__(self, jobs, cfg, params=None, mesh=None, progress=None,
                  batch_policy="auto", max_batch=None, pad_batches=False,
-                 retries=0, stream_images=True, canonicalize_styles=False,
-                 canonicalize_contents=False, device=None):
+                 retries=0, retry_delay_s=25.0, stream_images=True,
+                 canonicalize_styles=False, canonicalize_contents=False,
+                 device=None):
         self.calls.append([j[0] for j in jobs])
+        self.retries = (retries, retry_delay_s)
         self.pad_batches = pad_batches
         self.stream_images = stream_images
         self.device = device
@@ -306,7 +310,7 @@ def test_online_live_retries_a_failed_bucket(vgg_params, monkeypatch,
 
     monkeypatch.setattr(live_mod.LiveBatchRunner, "step", flaky_step)
     ex = _executor(Config(**LIVE, iters_num=4, stream_every=2),
-                   params=vgg_params, retries=retries)
+                   params=vgg_params, retries=retries, retry_delay_s=0.0)
 
     async def go():
         await ex.add_task("a", _pair(0))
@@ -358,11 +362,17 @@ def test_online_live_error_outside_a_chunk_fails_every_held_task(
 def test_online_live_join_bounds_newcomer_wait(vgg_params):
     """Through the executor (batch_join default): a task added while a
     batch is in flight gets its first progress before the in-flight task
-    completes (the round path made it wait out the whole round)."""
+    completes (the round path made it wait out the whole round). The
+    dispatch loop awaits each report, so A's first report holds A's next
+    chunk until B is queued: B arrives while A is in flight however fast
+    A's chunks run."""
     events = []
+    b_queued = asyncio.Event()
 
     async def report(tid, value):
         events.append((tid, value[0]))
+        if len(events) == 1:
+            await asyncio.wait_for(b_queued.wait(), timeout=60)
 
     ex = _executor(Config(**LIVE, iters_num=8, stream_every=2),
                    params=vgg_params, report_progress=report)
@@ -375,6 +385,7 @@ def test_online_live_join_bounds_newcomer_wait(vgg_params):
                 break
             await asyncio.sleep(0.05)
         await ex.add_task("B", _pair(1))
+        b_queued.set()
         await ex.run()
 
     asyncio.run(go())
@@ -424,3 +435,90 @@ def test_online_live_global_lane_budget(vgg_params, monkeypatch):
     assert len(runners_seen) == 2 and max_seen <= 2, max_seen
     for pct, _img in _progress(ex, ["a0", "a1", "b0", "b1"]).values():
         assert pct == 100.0
+
+
+def test_online_round_path_passes_retries_and_their_delay():
+    runner = FakeQueueRunner()
+    ex = _executor(Config(iters_num=2), queue_runner=runner, retries=2,
+                   retry_delay_s=1.5)
+
+    async def go():
+        await ex.add_task("t", _pair(0))
+        await ex.run()
+
+    asyncio.run(go())
+    assert runner.retries == (2, 1.5)
+    assert OnlineBatchingExecutor(Config(), device="cpu").retry_delay_s == 25.0
+
+
+def _flaky_first_step(monkeypatch, stamps):
+    """LiveBatchRunner.step that records (time, tids, outcome) and raises
+    at the first step of a runner holding a 'bad' task."""
+    real_step = live_mod.LiveBatchRunner.step
+
+    def step(self):
+        tids = sorted(self.all_tids)
+        if any(t.startswith("bad") for t in tids) and not stamps:
+            stamps.append((time.perf_counter(), tids, "failed"))
+            raise RuntimeError("transient device failure")
+        out = real_step(self)
+        stamps.append((time.perf_counter(), tids, "stepped"))
+        return out
+
+    monkeypatch.setattr(live_mod.LiveBatchRunner, "step", step)
+
+
+def test_online_live_retry_waits_while_other_buckets_step(vgg_params,
+                                                          monkeypatch):
+    """A failed bucket's task is resubmitted no sooner than retry_delay_s
+    after the failure, and another bucket keeps stepping meanwhile; both
+    finish."""
+    stamps = []
+    _flaky_first_step(monkeypatch, stamps)
+    delay = 0.3
+    ex = _executor(Config(**LIVE, iters_num=12, stream_every=2),
+                   params=vgg_params, retries=1, retry_delay_s=delay)
+
+    async def go():
+        await ex.add_task("bad0", _pair(0))                     # 16x16
+        await ex.add_task("good0", _pair(1, shape=(24, 16, 3)))
+        await asyncio.wait_for(ex.run(), timeout=120)
+
+    asyncio.run(go())
+    assert ex.failures == {}
+    for pct, img in _progress(ex, ["bad0", "good0"]).values():
+        assert pct == 100.0 and img is not None
+    t_fail = stamps[0][0]
+    assert stamps[0][1:] == (["bad0"], "failed")
+    t_retry = next(t for t, tids, what in stamps[1:] if tids == ["bad0"])
+    assert t_retry - t_fail >= delay
+    assert any(t_fail < t < t_retry for t, tids, _w in stamps
+               if tids == ["good0"])
+
+
+def test_online_aclose_cancels_a_waiting_retry(vgg_params, monkeypatch):
+    """aclose while a failed bucket's task waits out retry_delay_s leaves
+    no requeue pending and no task running on the loop."""
+    stamps = []
+    _flaky_first_step(monkeypatch, stamps)
+    ex = _executor(Config(**LIVE, iters_num=4, stream_every=2),
+                   params=vgg_params, retries=1, retry_delay_s=30.0)
+
+    async def go():
+        await ex.add_task("bad0", _pair(0))
+        for _ in range(1200):
+            if stamps:
+                break
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(0.1)  # the retry is scheduled, not yet due
+        waiting = dict(ex._OnlineBatchingExecutor__delayed)
+        await asyncio.wait_for(ex.aclose(), timeout=10)
+        others = asyncio.all_tasks() - {asyncio.current_task()}
+        return waiting, others
+
+    waiting, others = asyncio.run(go())
+    assert [[t for t, _c, _s in v] for v in waiting.values()] == [["bad0"]]
+    assert all(w.cancelled() for w in waiting)
+    assert ex._OnlineBatchingExecutor__delayed == {}
+    assert others == set()
+    assert [what for _t, _tids, what in stamps] == ["failed"]

@@ -46,7 +46,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for module in ("parallel/batch.py", "frontends/queue_cli.py",
                    "kernels/conv_relu.py", "ops/conv_relu.py",
                    "engine/checkpoint.py", "parallel/live.py",
-                   "runtime/online.py"):
+                   "runtime/online.py", "frontends/lab.py",
+                   "frontends/tlbot.py", "models/weights.py"):
         assert os.path.join(PORT, module) in files, module
     offenders = []
     for path in files:

@@ -6,18 +6,24 @@ config.precision_gate around each unit of its device work, so its convs
 run at its own conv_precision whatever the other jobs' is; the port never
 sets the matmul switch, so the L-BFGS history contractions and the
 pyramid resize run in full float32 at every precision (the JAX package
-runs the contractions at Precision.HIGHEST). The threads meet at events
-and barriers with timeouts, so no test can hang.
+runs the contractions at Precision.HIGHEST). 'highest' also runs
+cuDNN's deterministic algorithms (torch.backends.cudnn.deterministic,
+saved and restored by the gate like the TF32 switch), and a graph on the
+card is captured only inside the gate. The threads meet at events and
+barriers with timeouts, so no test can hang.
 """
 
 import sys
 import threading
+import types
 
 import numpy as np
+import pytest
 import torch
 import torch.nn.functional as F
 
-from artstyletransfer_tpu_torch.config import Config, precision_gate
+from artstyletransfer_tpu_torch.config import (Config, held_precision,
+                                               precision_gate)
 from artstyletransfer_tpu_torch.engine import lbfgs
 from artstyletransfer_tpu_torch.engine.transfer import TransferJob
 from artstyletransfer_tpu_torch.models import vgg19
@@ -234,3 +240,90 @@ def test_gate_never_mixes_precisions_under_contention():
     assert not any(t.is_alive() for t in threads)
     assert not errors and not bad, (errors, bad[:5])
     assert torch.backends.cudnn.allow_tf32 is saved
+
+
+@pytest.mark.parametrize("before", [False, True])
+def test_gate_runs_deterministic_cudnn_at_highest_only(monkeypatch, before):
+    """'highest' turns cuDNN's deterministic algorithms on, nested entries
+    keep them on, and the switch gets back its value from before when the
+    last holder leaves; 'default' and 'high' leave it as it was."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", before)
+    with precision_gate("highest"):
+        assert torch.backends.cudnn.deterministic is True
+        with precision_gate("highest"):
+            assert torch.backends.cudnn.deterministic is True
+        assert torch.backends.cudnn.deterministic is True
+    assert torch.backends.cudnn.deterministic is before
+    for precision in ("default", "high"):
+        with precision_gate(precision):
+            assert torch.backends.cudnn.deterministic is before
+        assert torch.backends.cudnn.deterministic is before
+
+
+def test_deterministic_switch_stays_on_until_the_last_holder_leaves(
+        monkeypatch):
+    """Two threads hold 'highest' together: the first to leave does not
+    turn the switch off under the other."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    both_in, first_out = threading.Event(), threading.Event()
+    seen, errors = [], []
+
+    def first():
+        try:
+            with precision_gate("highest"):
+                both_in.wait(_WAIT_S)
+            first_out.set()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def second():
+        try:
+            with precision_gate("highest"):
+                both_in.set()
+                first_out.wait(_WAIT_S)
+                seen.append(torch.backends.cudnn.deterministic)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=f) for f in (first, second)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and first_out.is_set() and seen == [True]
+    assert torch.backends.cudnn.deterministic is False
+
+
+def test_held_precision_names_the_callers_hold():
+    assert held_precision() is None
+    with precision_gate("highest"):
+        assert held_precision() == "highest"
+        other = []
+        t = threading.Thread(target=lambda: other.append(held_precision()))
+        t.start()
+        t.join(10)
+        assert other == [None]  # another thread holds nothing
+    assert held_precision() is None
+
+
+def test_a_card_capture_outside_the_gate_raises(monkeypatch):
+    """cuDNN picks its algorithms when a graph is captured: a job on the
+    card whose evaluation would be captured outside precision_gate (or
+    inside it at another precision) raises before anything is captured."""
+    from artstyletransfer_tpu_torch.engine import transfer as ttransfer
+
+    captured = []
+    monkeypatch.setattr(ttransfer.graphs_mod, "EvalGraph",
+                        lambda *a, **kw: captured.append(a))
+    cfg = Config(levels_num=1, base_diameter=16, conv_precision="highest")
+    job = types.SimpleNamespace(cfg=cfg, level_shapes=[(1, 16, 16, 3)],
+                                device=torch.device("cuda"), params={},
+                                _loss_fn=None)
+    x = torch.zeros(1, 768)
+    with pytest.raises(RuntimeError, match="outside precision_gate"):
+        ttransfer.eval_graph(job, (), x)
+    with precision_gate("default"):
+        with pytest.raises(RuntimeError, match="outside precision_gate"):
+            ttransfer.eval_graph(job, (), x)
+    assert captured == []

@@ -16,6 +16,7 @@ from artstyletransfer_tpu_torch.models.vgg19 import (
     param_shapes,
     prepare_model,
 )
+from artstyletransfer_tpu_torch.models import weights as weights_mod
 from artstyletransfer_tpu_torch.models.weights import (
     init_vgg19_params,
     load_vgg19_params,
@@ -82,6 +83,9 @@ def test_params_from_jax_layout(vgg_params):
 
 def test_npz_roundtrip_and_missing_path(tmp_path, monkeypatch):
     monkeypatch.delenv("ASTT_VGG19_WEIGHTS", raising=False)
+    # loading a named file writes the weights cache: keep it in tmp_path
+    monkeypatch.setattr(weights_mod, "_CACHE_FILE",
+                        str(tmp_path / "cache" / "vgg19_features.npz"))
     p = init_vgg19_params(seed=4)
     path = str(tmp_path / "w.npz")
     save_vgg19_params(p, path)

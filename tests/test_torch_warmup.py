@@ -182,3 +182,20 @@ def test_warm_shrink_graphs_captures_the_ladder(vgg_params, graphed):
     job = pbatch.BatchedTransferJob([img] * 4, [img] * 4, plain,
                                     params=vgg_params, device="cpu")
     assert job.warm_shrink_graphs() == 0
+
+
+def test_warmup_serving_warms_on_the_device_it_is_given(monkeypatch, graphed,
+                                                        tmp_path):
+    """warmup_serving(..., device='cpu') captures every online size on the
+    CPU, with no card visible (a frontend's --warmup --device cpu)."""
+    from artstyletransfer_tpu_torch.models import weights as tweights
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("ASTT_VGG19_WEIGHTS", raising=False)
+    monkeypatch.setattr(tweights, "_CACHE_FILE", str(tmp_path / "none.npz"))
+    cfg = Config(**SMALL, optimizer="adam", iters_num=1, stream_every=1)
+    assert twarmup.warmup_serving(cfg, online=True, aspects=(1.0,),
+                                  device="cpu") == 4
+    keys = list(ttransfer._COMPILE_CACHE._d)
+    assert sorted(k[-3] for k in keys) == [1, 2, 4, 8]
+    assert {k[-2] for k in keys} == {"cpu"}
