@@ -17,3 +17,34 @@ CUDA unless the caller passes device='cpu'.
 __version__ = "0.1.0"
 
 from .config import Config, simultaneous_tasks_count  # noqa: F401
+
+
+_LAZY = {
+    "ContentStylePair": "engine.transfer",
+    "TransferJob": "engine.transfer",
+    "neural_style_transfer": "engine.transfer",
+    "Executor": "runtime.executor",
+    "OnlineBatchingExecutor": "runtime.online",
+    "prepare_model": "models.vgg19",
+    "extract_features": "models.vgg19",
+    "load_vgg19_params": "models.weights",
+    "gram_matrix": "ops.gram",
+    "total_variation": "ops.tv",
+    "prepare_img": "utils.image",
+    "unprepare_img": "utils.image",
+    "load_image": "utils.image",
+    "run_job_queue": "parallel.batch",
+    "BatchedTransferJob": "parallel.batch",
+    "LiveBatchRunner": "parallel.live",
+}
+
+
+def __getattr__(name):
+    """Lazy top-level exports, the JAX package's names (keeps `import
+    artstyletransfer_tpu_torch` light)."""
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

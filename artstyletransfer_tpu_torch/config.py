@@ -3,9 +3,9 @@
 Same fields, defaults, presets and helpers as the JAX package's
 ``artstyletransfer_tpu/config.py`` (kept as an independent copy: this
 package never imports the JAX one). Fields that only steer an XLA lowering
-(``pool_impl``, ``pipeline_streaming``, ``use_pallas``) are kept so a
-config round-trips between the two packages; the port reads
-what its engine implements and says so where it differs.
+(``pool_impl``, ``use_pallas``) are kept so a config round-trips between
+the two packages; the port reads what its engine implements and says so
+where it differs.
 """
 
 from __future__ import annotations
@@ -74,9 +74,10 @@ class Config:
                                         # float32 (see precision_gate;
                                         # matmuls are always float32)
     stream_every: int = 10              # steps per progress yield
-    pipeline_streaming: bool = True     # JAX-only lookahead dispatch; the
-                                        # port streams sequentially, which
-                                        # yields the same values
+    pipeline_streaming: bool = True     # lookahead (Adam): chunk k's
+                                        # progress image is copied and
+                                        # yielded while chunk k+1 runs
+                                        # (same values)
     seed: int = 0
 
     # --- demonstration / ablation flags ---
@@ -92,7 +93,9 @@ class Config:
     fused_style_bwd: bool = True        # closed-form style-layer backward
     nan_checks: bool = True             # raise on a non-finite loss at
                                         # synced chunk boundaries
-    remat_levels: bool = False          # not ported yet (raises)
+    remat_levels: bool = False          # recompute each pyramid level's
+                                        # activations in the backward
+                                        # (torch.utils.checkpoint)
     stop_tol: float = 0.0               # convergence early-stop on the
                                         # relative loss change per chunk
     stop_shrink: bool = True            # batched runs: converged jobs

@@ -29,10 +29,22 @@ eagerly, as the CPU does by default. The optimizers' updates and the
 per-level metrics stay eager.
 
 ``TransferJob.run`` checkpoints and resumes the whole optimization state
-(engine/checkpoint.py), as the JAX package's does. Not ported yet (it
-raises NotImplementedError): ``remat_levels``. ``pipeline_streaming`` (the
-JAX package's lookahead dispatch) is host scheduling only; the port
-streams sequentially, which yields the same values in the same order.
+(engine/checkpoint.py), as the JAX package's does.
+
+``cfg.remat_levels`` checkpoints each pyramid level's feature-and-loss
+pass (``torch.utils.checkpoint``, non-reentrant; the JAX package's
+``jax.checkpoint``): the forward keeps only each level's input image, and
+the backward recomputes one level's activations at a time, so the Gram
+and TV forward kernels run twice per evaluation. The results are the same
+bits.
+
+``cfg.pipeline_streaming`` (lookahead) issues chunk k's device->host
+copy of the image and loss, then dispatches chunk k+1, and only then
+waits for the copy and yields chunk k: the copy, ``unprepare_img`` and the
+consumer's work overlap the next chunk on the card. Same values, same
+order as the sequential path. The port applies it to Adam, whose steps
+the host queues ahead of the card; the host-driven L-BFGS streams
+sequentially (``async_steps``).
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config, held_precision, precision_gate, resolve_device
 from ..models.vgg19 import CONTENT_INDEX, STYLE_INDICES, extract_features
@@ -135,8 +148,6 @@ def _check_supported(cfg: Config) -> None:
         raise ValueError(f"{cfg.model} not supported.")
     if cfg.optimizer not in ("adam", "lbfgs"):
         raise RuntimeError("Unknown optimizer")  # reference parity (:138)
-    if cfg.remat_levels:
-        raise NotImplementedError("remat_levels is not ported yet")
     if cfg.optimizer == "lbfgs":
         if cfg.lbfgs_grams not in ("recompute", "incremental"):
             raise ValueError(f"unknown lbfgs_grams {cfg.lbfgs_grams!r}; "
@@ -152,6 +163,20 @@ def _check_supported(cfg: Config) -> None:
 # --------------------------------------------------------------------------
 
 
+def level_pass(params, targets, lvl: int, cur: torch.Tensor,
+               cfg: Config):
+    """One pyramid level's feature-and-loss pass: VGG19 on the level's
+    (B, h, w, 3) image and its LevelLoss against targets[lvl]."""
+    feats = extract_features(params, cur, cfg.compute_dtype,
+                             use_relu=cfg.use_relu)
+    t_content, t_grams = targets[lvl]
+    return level_loss(feats, t_content, t_grams, cur,
+                      cfg.content_weight, cfg.style_weight,
+                      cfg.tv_weight, CONTENT_INDEX, STYLE_INDICES,
+                      use_pallas=cfg.use_pallas,
+                      fused_style_bwd=cfg.fused_style_bwd)
+
+
 def _make_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
                        cfg: Config):
     """Returns loss_fn(params, targets, x) -> ((B,) totals, LevelLoss list).
@@ -160,6 +185,11 @@ def _make_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
     lane axis (B, ...).
     x: the (B, n) flattened top-level preprocessed images (NHWC order), or
     one (n,) image (B = 1).
+
+    With cfg.remat_levels (and grad enabled) each level's pass runs under
+    non-reentrant torch.utils.checkpoint. It draws no random numbers, so
+    the RNG state is not saved: reading the CUDA generator is not allowed
+    inside a graph capture.
     """
     lane_shape = tuple(level_shapes[0][1:])
 
@@ -170,14 +200,15 @@ def _make_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
         for lvl in range(len(level_shapes)):
             if lvl > 0:
                 cur = downscale2x(cur)
-            feats = extract_features(params, cur, cfg.compute_dtype,
-                                     use_relu=cfg.use_relu)
-            t_content, t_grams = targets[lvl]
-            ll = level_loss(feats, t_content, t_grams, cur,
-                            cfg.content_weight, cfg.style_weight,
-                            cfg.tv_weight, CONTENT_INDEX, STYLE_INDICES,
-                            use_pallas=cfg.use_pallas,
-                            fused_style_bwd=cfg.fused_style_bwd)
+
+            def one_level(cur, lvl=lvl):
+                return level_pass(params, targets, lvl, cur, cfg)
+
+            if cfg.remat_levels and torch.is_grad_enabled():
+                ll = checkpoint(one_level, cur, use_reentrant=False,
+                                preserve_rng_state=False)
+            else:
+                ll = one_level(cur)
             # level totals accumulate (previous_loss_importance = 1.0,
             # reference neural_style_transfer.py:180-186)
             total = total + ll.total
@@ -229,17 +260,30 @@ def _eval_body(loss_fn, params):
     return body
 
 
+def graph_key(job, lanes: int) -> tuple:
+    """The _COMPILE_CACHE key of `job`'s evaluation at `lanes` lanes: the
+    engine config's fingerprint (_config_key, also the checkpoints' own)
+    extended by the lanes, the device and the identity of the weights the
+    graph binds."""
+    return _config_key(job.cfg, job.level_shapes) + (
+        lanes, str(job.device), id(job.params))
+
+
+def drop_graph(job, lanes: int) -> None:
+    """Remove `job`'s evaluation at `lanes` lanes from _COMPILE_CACHE (a
+    job that holds it keeps using it)."""
+    with _cache_lock:
+        _COMPILE_CACHE.pop(graph_key(job, lanes))
+
+
 def eval_graph(job, targets, x: torch.Tensor) -> graphs_mod.EvalGraph:
     """The cached evaluation of `job`'s shapes and config at x's lane
-    count, captured now if missing (inside the caller's precision gate):
-    a CUDA graph on the card, the eager test seam on the CPU. The key is
-    the engine config's fingerprint (_config_key, also the checkpoints'
-    own) extended by the lanes, the device and the identity of the
-    weights the graph binds. cuDNN picks its algorithms when the graph is
-    captured, so a capture on the card raises unless the calling thread
-    holds precision_gate at the job's conv_precision."""
-    key = _config_key(job.cfg, job.level_shapes) + (
-        x.shape[0], str(job.device), id(job.params))
+    count (graph_key), captured now if missing (inside the caller's
+    precision gate): a CUDA graph on the card, the eager test seam on the
+    CPU. cuDNN picks its algorithms when the graph is captured, so a
+    capture on the card raises unless the calling thread holds
+    precision_gate at the job's conv_precision."""
+    key = graph_key(job, x.shape[0])
     with _cache_lock:
         if key in _COMPILE_CACHE:
             return _COMPILE_CACHE[key]
@@ -448,6 +492,71 @@ class _Lbfgs:
         self.state.select(lanes)
 
 
+def async_steps(cfg: Config) -> bool:
+    """Whether lookahead streaming applies to cfg's steps: with
+    cfg.pipeline_streaming, for Adam, whose steps the host queues without
+    reading the device. An L-BFGS step reads the device in every round of
+    its line search, so dispatching the next chunk takes as long as
+    running it: under lookahead each progress image would come a chunk
+    late, to save one device->host copy and unprepare_img per chunk
+    (measured on an H100: PERF.md §6)."""
+    return cfg.pipeline_streaming and cfg.optimizer == "adam"
+
+
+class HostCopies:
+    """Lookahead streaming (cfg.pipeline_streaming): each chunk's results
+    on their way to the host while the next chunk runs.
+
+    copy(*tensors) starts copying a chunk's results to the host and
+    returns fetch(), which waits for that copy and returns the host
+    tensors. On CUDA the copies go into the next of two sets of pinned
+    buffers, used in turn (one set is still being read while the next
+    fills), with non_blocking=True, and an event is recorded after them:
+    issued before the next chunk is dispatched, the copy waits for nothing
+    queued after it, which a blocking .cpu() issued later would. On the
+    CPU the tensors are cloned. A fetched set is valid until the second
+    copy() after it."""
+
+    def __init__(self):
+        self._sets: List[Optional[List[torch.Tensor]]] = [None, None]
+        self._turn = 0
+        self._pending = None  # (done, fetch) of the chunk not yet yielded
+
+    def after_chunk(self, done, x, f, last: bool, materialize):
+        """Yields what lookahead streams once a chunk is dispatched: the
+        chunk before it, materialize(done, x, f)'d from its copy, and the
+        last chunk itself, which needs no copy (nothing runs after it).
+        This chunk's copy is issued first."""
+        ahead = None if last else (done, self.copy(x, f))
+        pending, self._pending = self._pending, ahead
+        if pending is not None:
+            yield materialize(pending[0], *pending[1]())
+        if last:
+            yield materialize(done, x, f)
+
+    def copy(self, *tensors: torch.Tensor):
+        if not tensors[0].is_cuda:
+            host = [t.detach().clone() for t in tensors]
+            return lambda: host
+        bufs = self._sets[self._turn]
+        if bufs is None or [b.shape for b in bufs] != [t.shape
+                                                       for t in tensors]:
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in tensors]
+            self._sets[self._turn] = bufs
+        self._turn ^= 1
+        for b, t in zip(bufs, tensors):
+            b.copy_(t.detach(), non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+
+        def fetch():
+            copied.synchronize()
+            return bufs
+
+        return fetch
+
+
 # --------------------------------------------------------------------------
 # Job API
 # --------------------------------------------------------------------------
@@ -544,6 +653,12 @@ class TransferJob:
         yield_images=False skips the device->host image copy (and the loss
         sync) on intermediate chunks: those yield (done, None, loss as a
         0-d device tensor); the final chunk always carries the image.
+        When images are streamed, cfg.pipeline_streaming (default on)
+        yields chunk k only after chunk k+1 was dispatched (HostCopies):
+        the same values in the same order. It is off under
+        report_level_losses and cfg.stop_tol, which read each chunk's
+        results before the next one, and for L-BFGS (async_steps); a
+        chunk that writes a checkpoint waits for its state.
         report_level_losses=True stores per-level (total, content, style,
         tv) of every synced chunk in self.last_level_losses.
         cfg.stop_tol > 0 ends the run once the relative loss change over a
@@ -576,6 +691,16 @@ class TransferJob:
         last_saved = done
         check_stop = cfg.stop_tol > 0.0
         f_prev = ck_extra.get("f_prev")
+        lookahead = (yield_images and async_steps(cfg)
+                     and not report_level_losses and not check_stop)
+        copies = HostCopies()
+
+        def materialize(done_k, x_k, f_k):
+            f_k = float(f_k)
+            if cfg.nan_checks and not np.isfinite(f_k):
+                _raise_nonfinite(f_k, done_k, cfg)
+            return done_k, self._image(x_k), f_k
+
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
                 k = min(chunk, iters - done)
@@ -592,7 +717,8 @@ class TransferJob:
                             <= cfg.stop_tol * max(1.0, abs(f))):
                         converged = True
                     f_prev = f
-                sync = yield_images or done >= iters or converged
+                sync = not lookahead and (yield_images or done >= iters
+                                          or converged)
                 img = None
                 if sync:
                     f = float(f)
@@ -611,6 +737,10 @@ class TransferJob:
                     img = self._image(x)
                     if report_level_losses:
                         _total, self.last_level_losses = self._metrics(x)
+            if lookahead:
+                yield from copies.after_chunk(done, x, f, done >= iters,
+                                              materialize)
+                continue
             yield done, img, f
             if converged:
                 return

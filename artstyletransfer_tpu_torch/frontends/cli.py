@@ -69,9 +69,27 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
                    default=None,
                    help="raise on non-finite loss at chunk boundaries "
                         "(default on)")
+    p.add_argument("--remat-levels", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="recompute each pyramid level's VGG pass in the "
+                        "backward instead of keeping its activations "
+                        "(torch.utils.checkpoint; for 4-level / 2K "
+                        "outputs; same results)")
+    p.add_argument("--pipeline-streaming",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="overlap each chunk's progress-image copy with "
+                        "the next chunk's device work (default on; Adam "
+                        "only; same results)")
     p.add_argument("--stop-tol", type=float, default=None,
                    help="end the run once the relative loss change over a "
                         "chunk is <= this (default 0 = run every step)")
+    p.add_argument("--stop-shrink", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="with --stop-tol on batched runs: a converged job "
+                        "leaves the batch at the chunk boundary and the "
+                        "rest re-form at the next power-of-two size "
+                        "(default on; --no-stop-shrink stops a batch only "
+                        "when every job has converged)")
     p.add_argument("--lbfgs-history", type=int, default=None,
                    help=f"L-BFGS memory pairs (default {d.lbfgs_history})")
     p.add_argument("--lbfgs-max-ls-steps", type=int, default=None,
@@ -160,7 +178,9 @@ _FLAG_FIELDS = {
     "base_diameter": "base_diameter", "stream_every": "stream_every",
     "compute_dtype": "compute_dtype", "conv_precision": "conv_precision",
     "fused_style_bwd": "fused_style_bwd", "nan_checks": "nan_checks",
-    "stop_tol": "stop_tol",
+    "stop_tol": "stop_tol", "stop_shrink": "stop_shrink",
+    "remat_levels": "remat_levels",
+    "pipeline_streaming": "pipeline_streaming",
     "lbfgs_history": "lbfgs_history",
     "lbfgs_max_ls_steps": "lbfgs_max_ls_steps",
     "lbfgs_direction": "lbfgs_direction",

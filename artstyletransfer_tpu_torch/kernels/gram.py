@@ -46,9 +46,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def gram_plain(f: torch.Tensor, scale: float) -> torch.Tensor:
-    """scale * F^T F in float32 (the kernel's plain version)."""
+    """scale * F^T F in float32 (the kernel's plain version), one matrix
+    product per lane: on an H100 a batched product (torch.bmm) of 2 or
+    more lanes of long F sums far less accurately than the same products
+    lane by lane (relative error 1.3e-3 against 7e-7 to the float64 Gram
+    at 4 lanes of a 2048 px relu1_1 tap, n = 4,194,304; chip_smoke.py's
+    2048 px rows)."""
     f32 = f.float()
-    return (f32.transpose(-1, -2) @ f32) * scale
+    if f32.dim() == 2:
+        return (f32.T @ f32) * scale
+    return torch.stack([(lane.T @ lane) * scale for lane in f32])
 
 
 def gram_bwd_plain(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ form the engine runs, through LaneTvFn, the counterpart of ``_tv_impl``:
 one forward kernel launch (means and squares) and one backward kernel
 launch for every lane on a CUDA tensor, the plain versions on the CPU.
 ``total_variation`` takes it over the whole batch, as the JAX function
-does unmapped; no path runs it.
+does unmapped, through TvMeansFn (the forward kernel's sums, a plain
+backward); engine/builders.py's LossBuilder runs it.
 
 At tied neighbours the gradient takes sign(0) = 0, as ``tv_pallas``'s
 hand-written VJP and the reference's ``torch.abs`` do. The JAX package's

@@ -48,11 +48,12 @@ from ..engine.init_pipeline import build_init_image
 from ..engine.pyramid import build_input_pyramids, level_shape
 from ..engine import checkpoint as ckpt
 from ..engine import graphs as graphs_mod
-from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, LossGrad, _Adam,
-                               _Lbfgs, _check_supported, _compute_targets,
-                               _config_key, _make_pyramid_loss,
-                               _raise_nonfinite_batch, eval_graph,
-                               lbfgs_history_gb, use_graphs, warn_lbfgs_hbm)
+from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, HostCopies,
+                               LossGrad, _Adam, _Lbfgs, _check_supported,
+                               _compute_targets, _config_key,
+                               _make_pyramid_loss, _raise_nonfinite_batch,
+                               async_steps, eval_graph, lbfgs_history_gb,
+                               use_graphs, warn_lbfgs_hbm)
 from ..models.weights import shared_params
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
@@ -272,6 +273,11 @@ class BatchedTransferJob:
         as a device tensor over every lane (padding included) unless a
         convergence check already fetched them; the final chunk always
         carries the images.
+        When images are streamed, cfg.pipeline_streaming (default on)
+        yields chunk k only after chunk k+1 was dispatched, as
+        TransferJob.run does (HostCopies; Adam only, and off under
+        cfg.stop_tol, whose check reads each chunk's losses before the
+        next one).
 
         cfg.stop_tol > 0: a job whose relative loss change over a chunk is
         <= stop_tol is done (latched). With cfg.stop_shrink a done job
@@ -397,6 +403,8 @@ class BatchedTransferJob:
         with precision_gate(cfg.conv_precision):
             opt = opt_cls(loss_grad, x, cfg, leaves)
         last_saved = done
+        lookahead = yield_images and async_steps(cfg) and not check_stop
+        copies = HostCopies()
 
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
@@ -466,12 +474,18 @@ class BatchedTransferJob:
                              or done >= iters or converged)):
                     save(converged)
                     last_saved = done
-                if yield_images or done >= iters or converged:
+                if lookahead:
+                    out = None  # streamed a chunk later, below
+                elif yield_images or done >= iters or converged:
                     out = materialize(done, x, f)
                 elif f_np is not None:
                     out = done, None, compose_losses(f_np)
                 else:
                     out = done, None, f
+            if lookahead:
+                yield from copies.after_chunk(done, x, f, done >= iters,
+                                              materialize)
+                continue
             yield out
             if converged:
                 return

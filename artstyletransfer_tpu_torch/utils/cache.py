@@ -54,5 +54,8 @@ class BoundedCache:
             while len(self._d) > self.maxsize:
                 self._d.popitem(last=False)
 
+    def pop(self, key, default=None) -> Any:
+        return self._d.pop(key, default)
+
     def clear(self) -> None:
         self._d.clear()

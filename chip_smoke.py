@@ -20,7 +20,10 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               and the fused conv3x3+bias+ReLU at all 26 convs of the
               truncated VGG19 at 512² and 256² inputs and at 8 images of
               the 512 px level's 13 (one launch each; plus one gradient
-              check through its autograd Function); holds each against its
+              check through its autograd Function), and the Gram
+              forward/backward at the five style taps of a 2048 px image
+              and TV both ways at 2048², at 1 and 4 lanes (rows tagged
+              `size`: 2048); holds each against its
               plain PyTorch version with a stated tolerance, and times it
               (device time from torch.profiler) beside its bound, the plain
               version and one library call (the Gram and conv kernels also
@@ -146,6 +149,43 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               final images finite and of their bucket's top-level shape,
               losses finite and falling. The image files are JPEG
               through OpenCV; OpenCV, aiohttp and jinja2 must import.
+11. large   — the 4-level job with a 2048 px top level
+              (Config(levels_num=4, base_diameter=256)), seeded 2048x2048
+              images and weights, full VGG19 width, Adam graphed, with
+              remat_levels off and on: 10 steps in chunks of 5 at 1 and 4
+              lanes (TF32 convs), 3 steps at 1 lane at
+              conv_precision="highest", then 8 lanes with remat and
+              without, each run only if parallel/memory.py's memory_stats
+              predicts it below 70 GB and the peak extrapolated from the
+              1- and 4-lane runs is below 70 GB too (else the prediction
+              alone: an evaluation's measured peak is the top level's
+              backward, ~10 GB a lane with remat or without, so 8 lanes
+              do not fit an 80 GB card). Printed for each run:
+              memory_stats' prediction (arguments, saved activations,
+              the recomputed level) beside its measured peak_bytes and
+              the run's own peak, construction and capture seconds,
+              device ms per step after the first chunk (CUDA events
+              around each step) and the launches of one evaluation,
+              which must be
+              gram 20, gram_bwd 20, tv 4, tv_bwd 4 without remat and gram
+              40, tv 8 with it (the recomputed forward). Remat on against
+              off: bit-equal final images and losses, else within rtol
+              1e-5 (printed). Then one unit L-BFGS lane with carried Grams
+              (production_config), remat on, 3 steps: its history GB
+              beside the run's peak. Counters zeroed before and read
+              after each run; losses finite and falling;
+12. lookahead — pipeline_streaming on and off (on, off, on, off): a
+              2048 px 4-level Adam job and a 512 px 2-level one, 20 steps
+              in chunks of 5, graphed (captured before the run): seconds
+              to the first and last yield, the device's idle ms at each
+              chunk boundary and between steps inside a chunk (CUDA
+              events around every step); every yielded image and loss
+              bit-equal on and off;
+13. builders — engine/builders.py's LossBuilder on the card at 512 px:
+              (total, content, style, tv) within rtol 1e-5 of a one-level
+              engine loss at the same image, its gradient finite; the
+              Gram, Gram-backward and TV forward kernels launched and no
+              plain kernel version called.
 
 Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
@@ -205,6 +245,10 @@ BATCHED = [(LANES, [(512, 512)]),
            (6, [(512, 512), (256, 256)]),
            (4, [(512, 512), (256, 256)]),
            (2, [(512, 682), (256, 341)])]
+# the large phase's top level (2048 px, 4 levels): its five Gram shapes
+# at 1 and 4 lanes, and TV both ways (rows tagged size=2048)
+LARGE_HW = 2048
+LARGE_ROWS = [(1, [(LARGE_HW, LARGE_HW)]), (4, [(LARGE_HW, LARGE_HW)])]
 # (h = w, cin, cout) of the truncated VGG19's 13 convs (conv1_1 .. conv5_1)
 # at each level input, 512 px and 256 px
 VGG_CONVS = [(1, 3, 64), (1, 64, 64), (2, 64, 128), (2, 128, 128),
@@ -479,6 +523,8 @@ def phase_kernels():
     for h, w in TV_SHAPES + TV_EXTRA:
         tv_rows(gen, rows, 1, h, w)
     batched_rows(gen, rows)
+    batched_rows(gen, rows, LARGE_ROWS, {"size": LARGE_HW})
+    torch.cuda.empty_cache()
     tv_autograd_rows(gen)
     conv_rows(gen, rows)
     conv_grad_check(gen)
@@ -505,16 +551,18 @@ def tap_grams(h, w):
             for i, c in enumerate((64, 128, 256, 512, 512))]
 
 
-def batched_rows(gen, rows):
-    """The Gram forward/backward and TV forward/backward at each BATCHED
-    lane count and level, float32, one launch per call, against the
-    batched plain versions; library (Gram): torch.bmm."""
+def batched_rows(gen, rows, batched=BATCHED, tag=None):
+    """The Gram forward/backward and TV forward/backward at each
+    `batched` lane count and level, float32, one launch per call, against
+    the batched plain versions; library (Gram): torch.bmm. `tag` is added
+    to every row."""
     import torch
 
     from artstyletransfer_tpu_torch.kernels import gram as kgram
 
     dev = torch.device("cuda")
-    for lanes, levels in BATCHED:
+    tag = tag or {}
+    for lanes, levels in batched:
         for n, c in [nc for h, w in levels for nc in tap_grams(h, w)]:
             f = torch.relu(torch.randn((lanes, n, c), generator=gen,
                                        device=dev))
@@ -526,7 +574,7 @@ def batched_rows(gen, rows):
             err, rel, tol = _check("gram", "float32", out, ref, (lanes, n, c))
             rows.append(dict(
                 kernel="gram", dtype="float32", lanes=lanes, n=n, c=c,
-                max_abs_err=err, rel_err=rel, tol=tol,
+                **tag, max_abs_err=err, rel_err=rel, tol=tol,
                 **gram_f64_check(f, s, out, ref, (lanes, n, c)),
                 **gram_bounds(n, c, 4, lanes),
                 **timings(lambda: kgram.gram_cuda(f, s),
@@ -544,17 +592,18 @@ def batched_rows(gen, rows):
                                    (lanes, n, c))
             rows.append(dict(
                 kernel="gram_bwd", dtype="float32", lanes=lanes, n=n, c=c,
-                max_abs_err=err, rel_err=rel, tol=tol,
+                **tag, max_abs_err=err, rel_err=rel, tol=tol,
                 **gram_bwd_bounds(n, c, 4, lanes),
                 **timings(lambda: kgram.gram_bwd_cuda(f, g),
                           lambda: kgram.gram_bwd_plain(f, g),
                           lambda: torch.bmm(f, g))))
             emit(dict(phase="kernels", **rows[-1]))
+            del f, g, out, ref
         for h, w in levels:
-            tv_rows(gen, rows, lanes, h, w)
+            tv_rows(gen, rows, lanes, h, w, tag)
 
 
-def tv_rows(gen, rows, lanes, h, w):
+def tv_rows(gen, rows, lanes, h, w, tag=None):
     """The TV forward and backward kernels on `lanes` integer-valued h x w
     x 3 images (8-bit-like, so neighbours tie), one launch each whatever
     the lanes, against their plain versions (forward: tv and means;
@@ -574,7 +623,7 @@ def tv_rows(gen, rows, lanes, h, w):
                       device=dev).float()
     g = torch.rand((lanes,), generator=gen, device=dev) + 0.5
     shape = (lanes, h, w)
-    tag = {} if lanes == 1 else {"lanes": lanes}
+    tag = dict(tag or {}, **({} if lanes == 1 else {"lanes": lanes}))
 
     tv, means = one_launch("tv", lambda: ktv.tv_cuda(y))
     again = ktv.tv_cuda(y)
@@ -782,7 +831,9 @@ def kernel_summary(rows, paths):
     evaluation's forward), times summed over them (kernel, plain, library,
     bound; the Gram and conv kernels also their tensor-core bound);
     launches summed over the driven paths, and per path. Each kernel also
-    carries `lanes8`: the same sums over its 8-lane (8-image) rows."""
+    carries `lanes8`: the same sums over its 8-lane (8-image) rows, and
+    the Gram and TV kernels `size2048_lanes1` / `_lanes4`: the sums over
+    the large phase's top-level rows, with their largest float64 error."""
     main_tv = {(h, w) for h, w in TV_SHAPES}
     out = []
     for name, meta in KERNELS.items():
@@ -800,6 +851,14 @@ def kernel_summary(rows, paths):
                   and r.get("lanes") == LANES]
         if lanes8:
             extra["lanes8"] = _sums(lanes8)
+        for lanes, _levels in LARGE_ROWS:
+            big = [r for r in rows if r["kernel"] == name
+                   and r.get("size") == LARGE_HW
+                   and r.get("lanes", 1) == lanes]
+            if big:
+                extra[f"size{LARGE_HW}_lanes{lanes}"] = dict(
+                    _sums(big), max_rel_err_f64=max(
+                        (r.get("rel_err_f64", 0.0) for r in big)))
         if "replaces_note" in meta:
             extra["replaces_note"] = meta["replaces_note"]
         out.append(dict(
@@ -2799,6 +2858,422 @@ def phase_frontends():
     return paths
 
 
+LARGE = dict(levels_num=4, base_diameter=256, optimizer="adam",
+             iters_num=10, stream_every=5)
+LARGE_LIMIT = 70e9  # bytes: a batch runs when memory_stats predicts below
+# kernel launches of one evaluation without remat: 5 style layers and one
+# TV image per level, 4 levels; remat runs each forward kernel twice
+LARGE_EVAL = {"gram": 20, "gram_bwd": 20, "tv": 4, "tv_bwd": 4,
+              "conv_relu": 0}
+REMAT_EVAL = {"gram": 40, "gram_bwd": 20, "tv": 8, "tv_bwd": 4,
+              "conv_relu": 0}
+_LARGE = {}  # the large phase's seeded images, made once
+
+
+def free_card():
+    """Drop every cached graph and return the allocator's free memory, so
+    that a large run's peak is its own."""
+    import gc
+
+    import torch
+
+    from artstyletransfer_tpu_torch.engine import transfer
+
+    transfer._COMPILE_CACHE.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def large_inputs(lanes, cfg):
+    """`lanes` seeded 2048 px contents, one style, and each lane's init
+    image (seed cfg.seed + lane, as BatchedTransferJob seeds it), made
+    once per lane; returns them and the seconds each init took."""
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.engine.init_pipeline import (
+        build_init_image)
+
+    if not _LARGE:
+        _LARGE["style"] = synthetic_pair(seed=200, size=LARGE_HW)[1]
+        _LARGE["lanes"] = []
+    style = _LARGE["style"]
+    while len(_LARGE["lanes"]) < lanes:
+        i = len(_LARGE["lanes"])
+        content = synthetic_pair(seed=300 + i, size=LARGE_HW)[0]
+        t0 = time.perf_counter()
+        init, _ = build_init_image(cfg.init_method, content, style, cfg,
+                                   rng=np.random.default_rng(cfg.seed + i))
+        _LARGE["lanes"].append((content, init, time.perf_counter() - t0))
+    got = _LARGE["lanes"][:lanes]
+    return ([c for c, _, _ in got], style, [i for _, i, _ in got],
+            [t for _, _, t in got])
+
+
+def gb(n):
+    return None if n is None else n / 1e9
+
+
+def run_large(name, cfg, lanes, params, expected_peak=None):
+    """memory_stats' prediction (and, when it and expected_peak, a peak
+    extrapolated from runs of fewer lanes, are below LARGE_LIMIT, its
+    measured peak), then a BatchedTransferJob of `lanes` lanes at 2048 px
+    run graphed for cfg.iters_num steps, with the counters zeroed just
+    before and read just after. Returns (record, launches, final images,
+    final losses), or (record, None, None, None) for a prediction
+    alone."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import precision_gate
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+    from artstyletransfer_tpu_torch.parallel.memory import memory_stats
+
+    free_card()
+    t0 = time.perf_counter()
+    too_big = expected_peak is not None and expected_peak > LARGE_LIMIT
+    stats = memory_stats(cfg, (LARGE_HW, LARGE_HW), lanes, device="cuda",
+                         limit_bytes=0 if too_big else LARGE_LIMIT)
+    rec = dict(phase="large", run=name, lanes=lanes,
+               remat=cfg.remat_levels, precision=cfg.conv_precision,
+               expected_peak_gb=gb(expected_peak),
+               predicted_gb=gb(stats["predicted_bytes"]),
+               argument_gb=gb(stats["argument_bytes"]),
+               saved_activation_gb=gb(stats["saved_activation_bytes"]),
+               recompute_peak_gb=gb(stats["recompute_peak_bytes"]),
+               stats_peak_gb=gb(stats["peak_bytes"]),
+               stats_before_gb=gb(stats.get("allocated_before_bytes")),
+               stats_s=time.perf_counter() - t0)
+    if stats["peak_bytes"] is None:
+        rec["not_run"] = (f"{'extrapolated peak' if too_big else 'predicted'}"
+                          f" above {gb(LARGE_LIMIT)} GB")
+        emit(rec)
+        RECORD.setdefault("large", []).append(rec)
+        return rec, None, None, None
+    free_card()
+    contents, style, inits, init_s = large_inputs(lanes, cfg)
+    t0 = time.perf_counter()
+    job = BatchedTransferJob(contents, [style] * lanes, cfg, params=params,
+                             device="cuda", init_overrides=inits)
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    first = job.initial_losses()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    with adam_step_events() as events:
+        reset_launches()  # ---- this run of the path starts here ----
+        t0 = time.perf_counter()
+        for done, imgs, losses in job.run(yield_images=False):
+            torch.cuda.synchronize()
+            stamps.append((time.perf_counter() - t0, done))
+        launches = dict(LAUNCHES)  # ---- and ends here ----
+    peak = torch.cuda.max_memory_allocated()
+    with precision_gate(cfg.conv_precision):
+        reset_launches()
+        job._loss_grad(job._x0)
+        torch.cuda.synchronize()
+        per_eval = dict(LAUNCHES)
+    # device ms per step after the first chunk (which captures), from
+    # the start of its first step to the end of its last
+    warm = events[cfg.stream_every:]
+    rec.update(construct_s=construct_s, init_s_per_lane=init_s,
+               capture_s=job._loss_grad._graph.capture_s,
+               first_chunk_s=stamps[0][0], wall_s=stamps[-1][0],
+               ms_per_step=(warm[0][0].elapsed_time(warm[-1][1]) / len(warm)
+                            if warm else None),
+               run_peak_gb=gb(peak),
+               run_reserved_peak_gb=gb(torch.cuda.max_memory_reserved()),
+               launches=launches,
+               launches_per_eval=per_eval,
+               first_loss=first.tolist(), last_loss=losses.tolist())
+    emit(rec)
+    RECORD.setdefault("large", []).append(rec)
+    want = REMAT_EVAL if cfg.remat_levels else LARGE_EVAL
+    if per_eval != want:
+        raise AssertionError(f"large {name}: launches per evaluation "
+                             f"{per_eval}, expected {want}")
+    if (imgs.shape != (lanes, LARGE_HW, LARGE_HW, 3)
+            or not np.isfinite(imgs).all()
+            or not (np.isfinite(losses).all() and (losses < first).all())):
+        raise AssertionError(f"large {name}: bad result {rec}")
+    check_launches(f"large {name}", launches)
+    return rec, launches, imgs, losses
+
+
+def same_or_close(name, a, b):
+    """Remat on against off: bit-equal arrays, else within rtol 1e-5 (the
+    JAX package's tests/test_misc.py) with the difference printed."""
+    import numpy as np
+
+    out = {}
+    for what, x, y in (("images", a[0], b[0]), ("losses", a[1], b[1])):
+        equal = bool(np.array_equal(x, y))
+        rel = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+        out[what] = dict(bit_equal=equal, max_rel_diff=rel)
+        if not equal and rel > 1e-5:
+            raise AssertionError(f"{name}: remat on and off part, {what} "
+                                 f"max relative difference {rel:.3e}")
+    return out
+
+
+def phase_large():
+    """The 4-level 2048 px job with remat_levels off and on (see the
+    module docstring)."""
+    import dataclasses
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+
+    params = init_vgg19_params(seed=0)
+    base = Config(**LARGE)
+    paths = {}
+    peaks = {}  # (remat, lanes) -> the run's measured peak bytes
+    for precision, lane_counts, steps in (("default", (1, 4), 10),
+                                          ("highest", (1,), 3)):
+        for lanes in lane_counts:
+            finals = {}
+            for remat in (False, True):
+                cfg = dataclasses.replace(
+                    base, remat_levels=remat, conv_precision=precision,
+                    iters_num=steps, stream_every=min(5, steps))
+                name = (f"{lanes}lane_{'remat' if remat else 'plain'}"
+                        f"_{precision}")
+                rec, launches, imgs, losses = run_large(name, cfg, lanes,
+                                                        params)
+                paths[f"large_{name}"] = launches
+                finals[remat] = (imgs, losses)
+                if precision == "default":
+                    peaks[(remat, lanes)] = rec["run_peak_gb"] * 1e9
+            rec = dict(phase="large", run=f"{lanes}lane_{precision}_remat_"
+                       "against_plain",
+                       **same_or_close(f"large {lanes} lanes {precision}",
+                                       finals[True], finals[False]))
+            emit(rec)
+            RECORD.setdefault("large", []).append(rec)
+    for remat in (True, False):
+        # the peak grows linearly with the lanes: extrapolate 1 and 4
+        one, four = peaks[(remat, 1)], peaks[(remat, 4)]
+        cfg = dataclasses.replace(base, remat_levels=remat)
+        name = f"8lane_{'remat' if remat else 'plain'}_default"
+        _rec, launches, _imgs, _losses = run_large(
+            name, cfg, 8, params, expected_peak=one + 7 * (four - one) / 3)
+        if launches is not None:
+            paths[f"large_{name}"] = launches
+
+    paths["large_lbfgs"] = large_lbfgs(params)
+    free_card()
+    return paths
+
+
+def large_lbfgs(params):
+    """One unit L-BFGS lane at 2048 px with carried Grams
+    (production_config), 3 steps, remat on: its history GB beside the
+    run's peak; the counters zeroed just before and read just after."""
+    import dataclasses
+
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config, production_config
+    from artstyletransfer_tpu_torch.engine.transfer import (
+        LBFGS_HISTORY_BUDGET_GB, TransferJob, lbfgs_history_gb)
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    free_card()
+    cfg = production_config(dataclasses.replace(
+        Config(**LARGE), optimizer="lbfgs", lbfgs_t_init="unit",
+        remat_levels=True, iters_num=3, stream_every=3), "cuda")
+    contents, style, inits, _ = large_inputs(1, cfg)
+    job = TransferJob(contents[0], style, cfg, params=params, device="cuda",
+                      init_override=inits[0])
+    first = job.initial_loss()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # ---- this run of the path starts here ----
+    t0 = time.perf_counter()
+    done, img, loss = list(job.run())[-1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)  # ---- and ends here ----
+    hist = lbfgs_history_gb(cfg, job.level_shapes)
+    rec = dict(phase="large", run="1lane_lbfgs_unit_incremental_remat",
+               lbfgs_grams=cfg.lbfgs_grams, steps=done, wall_s=wall,
+               history_gb=hist,
+               history_budget_gb=LBFGS_HISTORY_BUDGET_GB,
+               history_warning=hist > LBFGS_HISTORY_BUDGET_GB,
+               run_peak_gb=gb(torch.cuda.max_memory_allocated()),
+               first_loss=first, last_loss=loss, launches=launches)
+    emit(rec)
+    RECORD.setdefault("large", []).append(rec)
+    if img.shape != (LARGE_HW, LARGE_HW, 3) or not loss < first:
+        raise AssertionError(f"large lbfgs: bad result {rec}")
+    check_launches("large lbfgs", launches)
+    return launches
+
+
+@contextlib.contextmanager
+def adam_step_events():
+    """CUDA events recorded on the current stream just before and just
+    after every Adam step while active: yields the list of (start, end)
+    pairs it fills."""
+    import torch
+
+    from artstyletransfer_tpu_torch.engine import transfer
+
+    events = []
+    real_step = transfer._Adam.step
+
+    def step(self, x, s):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_step(self, x, s)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        events.append((start, end))
+        return out
+
+    with mock.patch.object(transfer._Adam, "step", step):
+        yield events
+
+
+def lookahead_run(cfg, content, style, params, init=None):
+    """One Adam TransferJob, graphed (captured before the run), with
+    device events around every step, and the counters zeroed just before
+    the run and read just after: (yields, record of the time to the first
+    and last yield and the device's idle ms at each chunk boundary and,
+    for comparison, between steps inside a chunk)."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import precision_gate
+    from artstyletransfer_tpu_torch.engine import transfer
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    job = transfer.TransferJob(content, style, cfg, params=params,
+                               device="cuda", init_override=init)
+    with precision_gate(cfg.conv_precision):
+        job._loss_grad(job._x0)  # the capture, before the timed run
+    torch.cuda.synchronize()
+    out = []
+    with adam_step_events() as events:
+        reset_launches()  # ---- this run of the path starts here ----
+        t0 = time.perf_counter()
+        for done, img, loss in job.run():
+            out.append((time.perf_counter() - t0, done, img, loss))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)  # ---- and ends here ----
+    gaps = [events[i][1].elapsed_time(events[i + 1][0])
+            for i in range(len(events) - 1)]
+    chunk = cfg.stream_every
+    boundary = [g for i, g in enumerate(gaps) if (i + 1) % chunk == 0]
+    inner = [g for i, g in enumerate(gaps) if (i + 1) % chunk]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    return out, dict(first_yield_s=out[0][0], last_yield_s=out[-1][0],
+                     boundary_idle_ms=boundary,
+                     inner_idle_ms_mean=float(np.mean(inner)),
+                     step_device_ms_mean=float(np.mean(step_ms)),
+                     launches=launches)
+
+
+def phase_lookahead():
+    """pipeline_streaming on and off: a 2048 px 4-level Adam job and a 512
+    px 2-level one, 20 steps in chunks of 5 (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+
+    params = init_vgg19_params(seed=0)
+    contents, style, inits, _ = large_inputs(1, Config(**LARGE))
+    cases = [("2048px", dict(LARGE), (contents[0], style), inits[0]),
+             ("512px", dict(levels_num=2, base_diameter=256,
+                            optimizer="adam"), synthetic_pair(seed=5), None)]
+    paths = {}
+    for name, kw, (content, style), init in cases:
+        cfg = Config(**dict(kw, iters_num=20, stream_every=5))
+        free_card()
+        runs = {}
+        for pipe in (True, False, True, False):
+            out, rec = lookahead_run(
+                dataclasses.replace(cfg, pipeline_streaming=pipe),
+                content, style, params, init)
+            rec = dict(phase="lookahead", run=name, pipeline_streaming=pipe,
+                       **rec)
+            emit(rec)
+            RECORD.setdefault("lookahead", []).append(rec)
+            check_launches(f"lookahead {name}", rec["launches"])
+            paths.setdefault(f"lookahead_{name}_{'on' if pipe else 'off'}",
+                             rec["launches"])
+            runs.setdefault(pipe, out)
+        same = all(a[1] == b[1] and a[3] == b[3]
+                   and np.array_equal(a[2], b[2])
+                   for a, b in zip(runs[True], runs[False]))
+        if not same or len(runs[True]) != len(runs[False]):
+            raise AssertionError(f"lookahead {name}: the yields with "
+                                 "pipeline_streaming on and off differ")
+    free_card()
+    return paths
+
+
+def phase_builders():
+    """engine/builders.py's LossBuilder at 512 px against a one-level
+    engine loss at the same image, on the card (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import Config, precision_gate
+    from artstyletransfer_tpu_torch.engine.builders import LossBuilder
+    from artstyletransfer_tpu_torch.engine.pyramid import (
+        build_input_pyramids)
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from artstyletransfer_tpu_torch.models.vgg19 import (CONTENT_INDEX,
+                                                         STYLE_INDICES)
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.utils.image import prepare_img
+
+    content, style = synthetic_pair(seed=9)
+    params = init_vgg19_params(seed=0)
+    cfg = Config(levels_num=1, base_diameter=512)
+    job = TransferJob(content, style, cfg, params=params, device="cuda")
+    c_lvls, s_lvls = build_input_pyramids(content, style, 1, 512)
+    probe = c_lvls[0] * 0.7 + 0.1
+    ref_total, ((_lt, lc, ls, ltv),) = job.loss_report(probe)
+
+    def dev(img):
+        return torch.from_numpy(prepare_img(img)).to(job.device)
+
+    reset_launches()  # ---- the builders' path starts here ----
+    with PlainSpy() as plain, precision_gate(cfg.conv_precision):
+        lb = LossBuilder(CONTENT_INDEX, list(STYLE_INDICES), dev(c_lvls[0]),
+                         dev(s_lvls[0]), job.params, cfg.content_weight,
+                         cfg.style_weight, cfg.tv_weight)
+        x = dev(probe).requires_grad_(True)
+        out = lb.build(x)
+        out[0].backward()
+        torch.cuda.synchronize()
+    launches = dict(LAUNCHES)  # ---- and ends here ----
+    ours = [float(v.detach()) for v in out]
+    ref = [ref_total, lc, ls, ltv]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ours, ref)]
+    rec = dict(phase="builders", losses=ours, engine_losses=ref,
+               rel_diff=rel, grad_finite=bool(torch.isfinite(x.grad).all()),
+               launches=launches, plain_calls=plain.calls)
+    emit(rec)
+    RECORD["builders"] = rec
+    if max(rel) > 1e-5 or not rec["grad_finite"]:
+        raise AssertionError(f"builders: {rec}")
+    if plain.calls or not all(launches[k] > 0
+                              for k in ("gram", "gram_bwd", "tv")):
+        raise AssertionError(f"builders: launches {launches}, plain calls "
+                             f"{plain.calls}")
+    if not np.isfinite(ours).all():
+        raise AssertionError(f"builders: {rec}")
+    return {"builders": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2818,6 +3293,9 @@ def main() -> int:
     paths.update(phase_graphs())
     paths.update(phase_online())
     paths.update(phase_frontends())
+    paths.update(phase_large())
+    paths.update(phase_lookahead())
+    paths.update(phase_builders())
     summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi

@@ -107,5 +107,14 @@ def test_nan_check_raises(params):
 
 
 def test_unported_options_raise(params):
-    with pytest.raises(NotImplementedError):
-        _small_job(params, iters_num=1, remat_levels=True)
+    """A device mesh and space sharding are not ported (remat_levels is:
+    tests/test_torch_remat.py)."""
+    from artstyletransfer_tpu_torch.parallel.batch import BatchedTransferJob
+
+    rng = np.random.default_rng(3)
+    content = rng.random((20, 24, 3)).astype(np.float32)
+    cfg = Config(levels_num=1, base_diameter=16, iters_num=1)
+    for kw in (dict(mesh=object()), dict(shard_space=True)):
+        with pytest.raises(NotImplementedError):
+            BatchedTransferJob([content], [content], cfg, params=params,
+                               device="cpu", **kw)
