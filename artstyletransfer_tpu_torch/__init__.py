@@ -4,8 +4,9 @@ Improved Gatys style transfer (multi-resolution pyramid loss, structured
 style-derived noise initialization, Adam or strong-Wolfe L-BFGS) running
 on an NVIDIA H100 through PyTorch, with hand-written CUDA kernels for the
 Gram matrix, its backward, the total-variation sums and the fused 3x3
-conv + bias + ReLU (kernels/), a batched job queue (parallel/) and live
-serving with chunk-boundary joins (parallel/live.py, runtime/online.py).
+conv + bias + ReLU (kernels/), a batched job queue (parallel/) placed over
+several cards by a jobs mesh (parallel/mesh.py), and live serving with
+chunk-boundary joins (parallel/live.py, runtime/online.py).
 
 The JAX package ``artstyletransfer_tpu`` is the reference this package is
 tested against; this package never imports it, nor JAX. Entry points
@@ -36,6 +37,10 @@ _LAZY = {
     "run_job_queue": "parallel.batch",
     "BatchedTransferJob": "parallel.batch",
     "LiveBatchRunner": "parallel.live",
+    "jobs_mesh": "parallel.mesh",
+    "jobs_space_mesh": "parallel.mesh",
+    "multislice_jobs_space_mesh": "parallel.mesh",
+    "default_serving_mesh": "parallel.mesh",
 }
 
 

@@ -270,15 +270,36 @@ class _PrecisionGate:
         try:
             yield
         finally:
-            with self._cond:
-                self._depth[me] -= 1
-                if not self._depth[me]:
-                    del self._depth[me]
-                if not self._depth:
-                    (torch.backends.cudnn.allow_tf32,
-                     torch.backends.cudnn.deterministic) = self._saved
-                    self._precision = None
-                    self._cond.notify_all()
+            self._leave(me)
+
+    def _leave(self, me: int) -> None:
+        with self._cond:
+            self._depth[me] -= 1
+            if not self._depth[me]:
+                del self._depth[me]
+            if not self._depth:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.deterministic) = self._saved
+                self._precision = None
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def join(self, precision: str):
+        """Hold the gate from a helper thread of a holder (a mesh's shard
+        thread): it enters at once, without waiting behind other arrivals,
+        because its holder keeps the gate at `precision` until the helper
+        is done. Raises unless the gate is held at that precision."""
+        me = threading.get_ident()
+        with self._cond:
+            if not self._depth or self._precision != precision:
+                raise RuntimeError(
+                    f"joining a {precision!r} precision gate that is not "
+                    "held at it")
+            self._depth[me] = self._depth.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            self._leave(me)
 
     def held(self):
         """The precision the calling thread holds the gate at, or None."""
@@ -301,6 +322,12 @@ def precision_gate(precision: str):
     return _GATE.hold(precision)
 
 
+def join_precision_gate(precision: str):
+    """Context manager: a helper thread of a holder of precision_gate at
+    `precision` holds it too, without waiting (see _PrecisionGate.join)."""
+    return _GATE.join(precision)
+
+
 def held_precision():
     """The conv_precision the calling thread holds precision_gate at, or
     None outside the gate."""
@@ -310,11 +337,20 @@ def held_precision():
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names the
     CPU. Raises when CUDA is asked for (explicitly or by default) and no
-    card is visible — the port never falls back to the CPU quietly."""
+    card is visible — the port never falls back to the CPU quietly — and
+    for a card index that is not visible. A CUDA device comes back with
+    its index ('cuda' names the calling thread's current card), so work
+    handed to another thread stays on it."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise ValueError(f"{dev} is not visible "
+                             f"({torch.cuda.device_count()} card(s))")
     return dev

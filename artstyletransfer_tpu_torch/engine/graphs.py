@@ -94,26 +94,33 @@ def cuda_capture(fn: Callable[[], Outputs], device):
     CUDA graph in the device's shared pool. Returns (replay, outputs,
     launches): replay() reruns the captured work on the current stream,
     overwriting `outputs`; launches are the kernel launches each replay
-    makes. The caller holds the device lock."""
+    makes. The caller holds the device lock. The capture runs with
+    `device` current (a mesh's shard thread may have another one)."""
     pool, stream = _pool_and_stream(device)
-    current = torch.cuda.current_stream(device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        for _ in range(WARM_PASSES):
-            fn()
-    current.wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    launches: Dict[str, int] = {}
-    kernels.RECORDING[stream.cuda_stream] = launches
-    try:
-        # thread-local: another job's thread may allocate or launch
-        # eagerly on its own stream meanwhile
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
-    finally:
-        del kernels.RECORDING[stream.cuda_stream]
-    return graph.replay, out, launches
+    with torch.cuda.device(stream.device):
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            for _ in range(WARM_PASSES):
+                fn()
+        current.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        launches: Dict[str, int] = {}
+        kernels.RECORDING[stream.cuda_stream] = launches
+        try:
+            # thread-local: another job's thread may allocate or launch
+            # eagerly on its own stream meanwhile
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            del kernels.RECORDING[stream.cuda_stream]
+
+    def replay():
+        with torch.cuda.device(stream.device):
+            graph.replay()
+
+    return replay, out, launches
 
 
 def eager_capture(fn: Callable[[], Outputs], device):
@@ -147,6 +154,7 @@ class EvalGraph:
                  capture: Capture = cuda_capture):
         global CAPTURES
         self.lock = device_lock(x.device)
+        self._index = x.device.index  # the card the replays count on
         self.x = x.detach().clone()
         self.targets = tuple(
             (content.detach().clone(), tuple(g.detach().clone()
@@ -176,5 +184,5 @@ class EvalGraph:
             else:
                 torch.addcmul(x, t, d, out=self.x)
             self._replay()
-            kernels.add_launches(self.launches)
+            kernels.add_launches(self.launches, self._index)
             return self._f.clone(), self._g.clone()

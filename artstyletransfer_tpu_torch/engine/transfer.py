@@ -511,11 +511,12 @@ class HostCopies:
     returns fetch(), which waits for that copy and returns the host
     tensors. On CUDA the copies go into the next of two sets of pinned
     buffers, used in turn (one set is still being read while the next
-    fills), with non_blocking=True, and an event is recorded after them:
-    issued before the next chunk is dispatched, the copy waits for nothing
-    queued after it, which a blocking .cpu() issued later would. On the
-    CPU the tensors are cloned. A fetched set is valid until the second
-    copy() after it."""
+    fills), with non_blocking=True, and an event is recorded after them
+    on each device: issued before the next chunk is dispatched, the copy
+    waits for nothing queued after it, which a blocking .cpu() issued
+    later would. On the CPU the tensors are cloned. A fetched set is
+    valid until the second copy() after it. A sharded batch's Lanes
+    (parallel/shards.py) is copied piece by piece and fetched whole."""
 
     def __init__(self):
         self._sets: List[Optional[List[torch.Tensor]]] = [None, None]
@@ -534,25 +535,39 @@ class HostCopies:
         if last:
             yield materialize(done, x, f)
 
-    def copy(self, *tensors: torch.Tensor):
-        if not tensors[0].is_cuda:
-            host = [t.detach().clone() for t in tensors]
+    def copy(self, *tensors):
+        groups = [list(getattr(t, "parts", [t])) for t in tensors]
+        flat = [p for g in groups for p in g]
+
+        def regroup(host):
+            out, i = [], 0
+            for g in groups:
+                out.append(host[i] if len(g) == 1
+                           else torch.cat(host[i:i + len(g)]))
+                i += len(g)
+            return out
+
+        if not flat[0].is_cuda:
+            host = regroup([t.detach().clone() for t in flat])
             return lambda: host
         bufs = self._sets[self._turn]
         if bufs is None or [b.shape for b in bufs] != [t.shape
-                                                       for t in tensors]:
+                                                       for t in flat]:
             bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in tensors]
+                    for t in flat]
             self._sets[self._turn] = bufs
         self._turn ^= 1
-        for b, t in zip(bufs, tensors):
+        for b, t in zip(bufs, flat):
             b.copy_(t.detach(), non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
+        events = []
+        for dev in dict.fromkeys(t.device for t in flat):
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(dev))
 
         def fetch():
-            copied.synchronize()
-            return bufs
+            for copied in events:
+                copied.synchronize()
+            return regroup(bufs)
 
         return fetch
 

@@ -10,8 +10,9 @@ warmup that runs one chunk per bucket and batch size leaves the first
 user nothing to capture. A live chunk (parallel/live.py) replays the same
 (bucket, lanes) graph, so the batched warmup covers live serving too;
 ``warm_live_chunk`` is called only where the live path engages (the
-'batched' policy route; the JAX package calls it for every config). The
-port runs one card: a mesh raises, as it does in parallel/batch.py.
+'batched' policy route; the JAX package calls it for every config). On a
+mesh (parallel/mesh.py) each shard captures its own part of a batch, on
+its card; ``warmup_serving`` warms on default_serving_mesh(), every card.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import numpy as np
 
 from ..config import Config
 from ..parallel.batch import (DEFAULT_ASPECT_BUCKETS, BatchedTransferJob,
-                              _not_ported, bucket_content_shape,
-                              planned_round_sizes, resolve_batch_policy)
+                              bucket_content_shape, planned_round_sizes,
+                              resolve_batch_policy)
+from ..parallel.mesh import check_mesh, jobs_axis, serving_mesh
 from . import graphs
 from .transfer import TransferJob
 
@@ -35,15 +37,19 @@ def warmup_serving(cfg: Config, online: bool,
                    device=None) -> int:
     """The frontends' shared --warmup entry point: capture every serving
     aspect bucket's evaluation; with online batching, at every batch size
-    online rounds dispatch (online_warmup_plan). Returns the number of
-    graphs captured. `aspects` narrows the bucket list (tests). Runs on
-    CUDA unless device='cpu', the device the frontend serves on."""
+    online rounds dispatch (online_warmup_plan) on the serving mesh
+    (parallel/mesh.py serving_mesh: every card, None with fewer than two
+    or on the CPU). Returns the number of graphs captured. `aspects`
+    narrows the bucket list (tests). Runs on CUDA unless device='cpu',
+    the device the frontend serves on."""
     sizes = None
+    mesh = None
     if online:
-        sizes, _mesh = online_warmup_plan(cfg, None)
+        sizes, mesh = online_warmup_plan(
+            cfg, serving_mesh(device if device is not None else "cuda"))
     kwargs = {} if aspects is None else {"aspects": aspects}
-    return warmup_aspect_buckets(cfg, batch_sizes=sizes, device=device,
-                                 **kwargs)
+    return warmup_aspect_buckets(cfg, batch_sizes=sizes, mesh=mesh,
+                                 device=device, **kwargs)
 
 
 def online_warmup_plan(cfg: Config, mesh, batch_policy: str = "auto",
@@ -52,19 +58,23 @@ def online_warmup_plan(cfg: Config, mesh, batch_policy: str = "auto",
     rounds dispatch, mirroring run_job_queue's routing rules: a
     'batched'-routed config captures the padded power-of-two ladder
     {1, 2, ..., max_batch} (and with stop_shrink the shrink ladder, which
-    it holds); a 'sequential'-routed config (full-Wolfe L-BFGS) captures
-    single-job batches. One card: mesh must be None."""
-    _not_ported(mesh, False)
+    it holds), on the mesh; a 'sequential'-routed config (full-Wolfe
+    L-BFGS) captures single-job batches, and without the mesh where its
+    jobs axis is wider than 1 (run_job_queue runs such a group of one job
+    without it)."""
+    check_mesh(mesh)
     policy = resolve_batch_policy(cfg, batch_policy)
+    axis = jobs_axis(mesh)
     if policy != "batched":
-        return (1,), None
+        return (1,), (mesh if axis == 1 else None)
     # live round sizes are unknown ahead of time: warm the union of the
     # sizes every possible round 1..max_batch dispatches
     shape = (cfg.base_diameter, cfg.base_diameter, 3)
     sizes = sorted({s for n in range(1, max_batch + 1)
                     for s in planned_round_sizes(cfg, shape, n,
+                                                 jobs_axis=axis,
                                                  max_batch=max_batch)})
-    return tuple(sizes), None
+    return tuple(sizes), mesh
 
 
 def warmup_aspect_buckets(cfg: Config, params=None,
@@ -87,9 +97,11 @@ def warmup_aspect_buckets(cfg: Config, params=None,
     cfg.stop_tol and cfg.stop_shrink are set) and, for a 'batched'-policy
     config, the evaluation a live chunk replays (warm_live_chunk). Pass
     the sizes online serving pads its rounds to (online_warmup_plan).
-    mesh must be None (one card). Runs on CUDA unless device='cpu'.
+    mesh: each batch is sharded over its jobs axis, as the serving path
+    shards it (pass online_warmup_plan's mesh). Runs on CUDA unless
+    device='cpu'.
     """
-    _not_ported(mesh, False)
+    check_mesh(mesh)
     before = graphs.CAPTURES
     k = steps if steps is not None else cfg.stream_every
     live = resolve_batch_policy(cfg) == "batched"
@@ -105,7 +117,8 @@ def warmup_aspect_buckets(cfg: Config, params=None,
                                   device=device)
             else:
                 job = BatchedTransferJob([content] * size, [style] * size,
-                                         cfg, params=params, device=device)
+                                         cfg, params=params, mesh=mesh,
+                                         device=device)
             for _ in job.run(iters_num=k, stream_every=k,
                              yield_images=False):
                 pass

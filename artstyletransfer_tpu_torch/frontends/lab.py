@@ -17,8 +17,10 @@ In this package:
 - The default executor (--online) is runtime/online.py's
   OnlineBatchingExecutor; --no-online runs the reference's 2-at-a-time
   Executor, and --batched one run_job_queue over the whole demo.
-- One card: the JAX package's serving mesh (default_serving_mesh) has no
-  counterpart, as a mesh raises in parallel/batch.py.
+- On CUDA the online executor and --batched serve on
+  default_serving_mesh(), as in the JAX package: every card of a host
+  with two or more (parallel/mesh.py; ASTT_SERVING_MESH=none turns it
+  off), one card otherwise.
 - No compilation cache: the JAX package turns on XLA's persistent cache
   in main; here each evaluation is a CUDA graph captured in the process
   (engine/transfer.py's _COMPILE_CACHE), and --warmup captures the
@@ -43,6 +45,7 @@ import uuid
 from ..config import (PRESETS, STANDARD_GAUSS_NOISE_CONFIG, production_config,
                       resolve_device)
 from ..engine.transfer import ContentStylePair
+from ..parallel.mesh import serving_mesh
 from ..runtime.executor import Executor, call_in_loop, record_failure
 from ..utils.image import encode_jpeg, load_image
 
@@ -135,8 +138,8 @@ class Lab:
 
                 executor = OnlineBatchingExecutor(
                     self.config, verbose=False, metrics=self.metrics,
-                    retries=queue_retries, retry_delay_s=retry_delay_s,
-                    device=self.device)
+                    mesh=serving_mesh(self.device), retries=queue_retries,
+                    retry_delay_s=retry_delay_s, device=self.device)
             else:
                 executor = Executor(self.config, engine=engine,
                                     verbose=False, metrics=self.metrics,
@@ -205,6 +208,7 @@ class Lab:
 
         _results, failures = await loop.run_in_executor(
             None, lambda: run_job_queue(jobs, self.config, progress=report,
+                                        mesh=serving_mesh(self.device),
                                         canonicalize_styles=True,
                                         retries=self.queue_retries,
                                         retry_delay_s=self.retry_delay_s,

@@ -19,9 +19,12 @@ Manifest: JSONL, one job per line:
 
 Every engine/config flag of the port's CLI is accepted, plus --device
 (default cuda; the run raises if no card is visible and --device cpu was
-not given). The queue runs on one card: the JAX package's --mesh (job
-placement over several chips) is not ported yet, and --space > 1 exits
-with an error. --checkpoint-dir [--checkpoint-every N] [--resume] keeps
+not given). --mesh auto (default) places each batch's jobs over every
+visible card (parallel/mesh.py default_serving_mesh; a no-op on one card
+and on the CPU, and the ASTT_SERVING_MESH=none environment variable
+turns it off); --mesh none runs on one card. --space > 1 (one job's
+pixels over several cards) is not ported and exits with an error.
+--checkpoint-dir [--checkpoint-every N] [--resume] keeps
 one checkpoint per group and resumes the same queue from them. Failed
 jobs are reported on stderr and in the exit code;
 completed images land in --output-dir/<id>.jpg. Reading and writing
@@ -62,6 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "routing; see parallel/batch.py")
     p.add_argument("--max-batch", type=int, default=None,
                    help="cap jobs per batch (default: memory-aware)")
+    p.add_argument("--mesh", default="auto", choices=["auto", "none"],
+                   help="'auto' (default) batches jobs across every "
+                        "visible card (no-op on one card and with --device "
+                        "cpu); 'none' stays on one card. The "
+                        "ASTT_SERVING_MESH env var can force 'none'.")
     p.add_argument("--space", type=int, default=1, metavar="N",
                    help="shard each job's pixels over N cards (not ported: "
                         "only 1)")
@@ -162,12 +170,16 @@ def main(argv=None) -> int:
         params = load_vgg19_params(args.weights)
 
     from ..parallel import run_job_queue
+    from ..parallel.mesh import serving_mesh
     from ..utils.metrics import MetricsLogger
 
+    mesh = serving_mesh(args.device) if args.mesh == "auto" else None
     if not args.quiet:
+        where = (f"mesh={mesh.shape} over {mesh.size} cards"
+                 if mesh is not None else f"device={args.device}")
         print(f"queue: {len(jobs)} jobs, policy={args.batch_policy}, "
               f"optimizer={cfg.optimizer}, levels={cfg.levels_num}, "
-              f"iters={cfg.iters_num}, device={args.device}")
+              f"iters={cfg.iters_num}, {where}")
 
     t0 = time.time()
     with MetricsLogger(args.metrics) as metrics:
@@ -184,7 +196,7 @@ def main(argv=None) -> int:
             stream_images=False,  # final images only — no per-chunk copy
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every, resume=args.resume,
-            retries=args.retries, device=args.device)
+            retries=args.retries, mesh=mesh, device=args.device)
         failures = {**load_failures, **failures}
 
         for tid, img in results.items():

@@ -19,12 +19,14 @@ sendPhoto. The token comes from ASTT_TELEGRAM_TOKEN or --token:
 
 In this package jobs run on CUDA unless --device cpu (device='cpu'), and
 without a card the entry points raise. The default executor
-(--online-batching) is runtime/online.py's OnlineBatchingExecutor; the
-serving mesh and the compilation cache of the JAX package have no
-counterpart (one card; the CUDA graphs live in the process, see
-frontends/lab.py). aiohttp is imported inside TelegramClient's methods
-and OpenCV inside utils/image.py's functions, so the handler logic runs
-with a fake transport (tests) and without either package.
+(--online-batching) is runtime/online.py's OnlineBatchingExecutor, which
+on CUDA serves on default_serving_mesh() as the JAX package's does
+(every card of a host with two or more; parallel/mesh.py). The JAX
+package's compilation cache has no counterpart (the CUDA graphs live in
+the process, see frontends/lab.py). aiohttp is imported inside
+TelegramClient's methods and OpenCV inside utils/image.py's functions,
+so the handler logic runs with a fake transport (tests) and without
+either package.
 """
 
 from __future__ import annotations
@@ -150,13 +152,16 @@ class StyleTransferBot:
             # share a bucket run as one batch of lanes instead of
             # 2-at-a-time (runtime/online.py). The executor canonicalizes
             # at add_task, so the handler-level crop is redundant.
+            from ..parallel.mesh import serving_mesh
             from ..runtime.online import OnlineBatchingExecutor
 
             self.canonicalize = False
+            device = resolve_device(device)
             self.executor = OnlineBatchingExecutor(
                 self.config, report_progress=self.task_progress_callback,
                 report_failure=self.task_failed_callback,
-                verbose=False, metrics=metrics, retries=queue_retries,
+                verbose=False, metrics=metrics,
+                mesh=serving_mesh(device), retries=queue_retries,
                 retry_delay_s=retry_delay_s, device=device)
         else:
             self.executor = Executor(

@@ -146,7 +146,7 @@ def conv_relu_cuda(x: torch.Tensor, w: torch.Tensor,
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), n, h, wd, cin,
                 cout, out.data_ptr(), stream)
     build.check(err, "conv_relu")
-    launched("conv_relu", stream)
+    launched("conv_relu", stream, x.device.index)
     return out
 
 

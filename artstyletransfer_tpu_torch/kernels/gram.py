@@ -146,7 +146,7 @@ def gram_cuda(f: torch.Tensor, scale: float) -> torch.Tensor:
         err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], batch, n, c, splits,
                  rows, float(scale), part.data_ptr(), out.data_ptr(), stream)
     build.check(err, "gram")
-    launched("gram", stream)
+    launched("gram", stream, f.device.index)
     return out
 
 
@@ -173,7 +173,7 @@ def gram_bwd_cuda(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         err = fn(f.data_ptr(), _DTYPE_CODE[f.dtype], g.data_ptr(), batch, n,
                  c, out.data_ptr(), stream)
     build.check(err, "gram_bwd")
-    launched("gram_bwd", stream)
+    launched("gram_bwd", stream, f.device.index)
     return out
 
 

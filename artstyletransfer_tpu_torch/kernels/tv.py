@@ -147,8 +147,10 @@ def max_clusters(cluster: int, index: int, warps: int = _FWD_MAX_WARPS,
     """How many clusters of `cluster` forward blocks of `warps` warps CUDA
     device `index` holds at once (cudaOccupancyMaxActiveClusters)."""
     n = ctypes.c_int(0)
-    build.check(_lib().astt_tv_fwd_clusters(vec, c, cluster, warps, index,
-                                            ctypes.byref(n)), "tv")
+    with torch.cuda.device(index):  # the attributes and the query are
+        # the current device's
+        build.check(_lib().astt_tv_fwd_clusters(vec, c, cluster, warps,
+                                                index, ctypes.byref(n)), "tv")
     return n.value
 
 
@@ -197,13 +199,15 @@ def _tv_out(y: torch.Tensor) -> torch.Tensor:
     index = y.device.index
     vec = vec_width(w, c, y.data_ptr())
     plan = _plan(index, b, h, w, c, vec)
-    out = torch.empty((b, 5), dtype=torch.float32, device=y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = _lib().astt_tv_fwd(
-        y.data_ptr(), b, h, w, c, vec, plan["cluster"], plan["fwd_warps"],
-        plan["fwd_rows"], out.data_ptr(), index, stream)
+    with torch.cuda.device(y.device):  # the launch goes to the current one
+        out = torch.empty((b, 5), dtype=torch.float32, device=y.device)
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = _lib().astt_tv_fwd(
+            y.data_ptr(), b, h, w, c, vec, plan["cluster"],
+            plan["fwd_warps"], plan["fwd_rows"], out.data_ptr(), index,
+            stream)
     build.check(err, "tv")
-    launched("tv", stream)
+    launched("tv", stream, index)
     return out
 
 
@@ -230,14 +234,16 @@ def tv_bwd_cuda(y: torch.Tensor, g: torch.Tensor,
     index = y.device.index
     vec = vec_width(w, c, y.data_ptr())
     plan = _plan(index, b, h, w, c, vec)
-    grad = torch.empty_like(y, memory_format=torch.contiguous_format)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = _lib().astt_tv_bwd(
-        y.data_ptr(), g.data_ptr(), g.stride(0), means.data_ptr(),
-        means.stride(0), b, h, w, c, vec, plan["bwd_blocks"],
-        plan["bwd_warps"], plan["bwd_rows"], grad.data_ptr(), index, stream)
+    with torch.cuda.device(y.device):  # the launch goes to the current one
+        grad = torch.empty_like(y, memory_format=torch.contiguous_format)
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = _lib().astt_tv_bwd(
+            y.data_ptr(), g.data_ptr(), g.stride(0), means.data_ptr(),
+            means.stride(0), b, h, w, c, vec, plan["bwd_blocks"],
+            plan["bwd_warps"], plan["bwd_rows"], grad.data_ptr(), index,
+            stream)
     build.check(err, "tv_bwd")
-    launched("tv_bwd", stream)
+    launched("tv_bwd", stream, index)
     return grad
 
 

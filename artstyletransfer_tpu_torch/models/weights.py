@@ -254,23 +254,28 @@ def shared_params(np_params: Optional[NpParams], seed: int, device):
     time; the cache is written only when a named file is read). The
     captured evaluations (engine/graphs.py) bind the weights' tensors, so
     jobs share a graph only when they share these. The last 4 sources are
-    kept."""
+    kept, each with its copy on every device it was asked for: the cards
+    of a mesh never evict each other's copies."""
     dev = str(torch.device(device))
     if np_params is None:
         path = os.environ.get(_ENV_VAR) or _CACHE_FILE
         stamp = os.stat(path).st_mtime_ns if os.path.exists(path) else None
-        key = ("seed", seed, path, stamp, dev)
+        key = ("seed", seed, path, stamp)
     else:
-        key = ("object", id(np_params), dev)
+        key = ("object", id(np_params))
     with _shared_lock:
-        if key in _SHARED and _SHARED[key][0] is np_params:
-            return _SHARED[key][1]
-        src = (np_params if np_params is not None
-               else load_vgg19_params(seed=seed))
-        out = params_from_jax(src, device)
-        # the source object is kept with its copy, so its id is not reused
-        _SHARED[key] = (np_params, out)
-        return out
+        entry = _SHARED[key] if key in _SHARED else None
+        if entry is None or entry["source"] is not np_params:
+            # the source object is kept with its copies, so its id is not
+            # reused; a seed's weights are loaded once for every device
+            entry = _SHARED[key] = {
+                "source": np_params, "copies": {},
+                "np": (np_params if np_params is not None
+                       else load_vgg19_params(seed=seed))}
+        copies = entry["copies"]
+        if dev not in copies:
+            copies[dev] = params_from_jax(entry["np"], device)
+        return copies[dev]
 
 
 if __name__ == "__main__":

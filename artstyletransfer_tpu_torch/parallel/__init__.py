@@ -1,4 +1,7 @@
-"""Batched multi-job execution: the job queue in lanes on one card."""
+"""Batched multi-job execution: the job queue in lanes, on one card or
+over the jobs axis of a mesh of cards."""
 
+from .mesh import (Mesh, default_serving_mesh, jobs_mesh,  # noqa: F401
+                   jobs_space_mesh, multislice_jobs_space_mesh)
 from .batch import (BatchedTransferJob, bucket_jobs,  # noqa: F401
                     max_jobs_per_batch, resolve_batch_policy, run_job_queue)

@@ -1,4 +1,4 @@
-"""Batched multi-job style transfer on one card: a job queue in lanes.
+"""Batched multi-job style transfer: a job queue in lanes.
 
 The port of the JAX package's ``parallel/batch.py``. The reference's
 throughput model is "N independent jobs, at most 2 at a time on one GPU"
@@ -26,9 +26,19 @@ size (``warm_shrink_graphs`` captures those ahead of time).
 
 A batch checkpoints and resumes as a whole (engine/checkpoint.py), in the
 middle of a convergence shrink too, and ``run_job_queue`` keeps one
-checkpoint per group. Not ported yet (they raise NotImplementedError): a
-device mesh (job placement over several cards) and space sharding (a
-GSPMD feature of the JAX package).
+checkpoint per group.
+
+On a mesh (parallel/mesh.py) whose jobs axis is A, a batch is padded to a
+multiple of A by replicating its last job, as the JAX package pads, and
+split into A contiguous shards of lanes, one per jobs row: each shard is a
+one-card batch with its own targets and captured graph, stepped in a host
+thread of its own, and the shards meet at every chunk boundary
+(parallel/shards.py). Losses and images are composed in lane order, a
+convergence shrink re-forms the lanes over the shards (a lane may move to
+another card), and a checkpoint holds the whole batch in lane order, the
+file of an unsharded batch. Space sharding (one job's pixels over several
+cards, a GSPMD feature of the JAX package) is not ported and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,12 +48,13 @@ import os
 import sys
 import time
 from collections import defaultdict
+from functools import partial
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import Config, precision_gate, resolve_device
+from ..config import Config, precision_gate
 from ..engine.init_pipeline import build_init_image
 from ..engine.pyramid import build_input_pyramids, level_shape
 from ..engine import checkpoint as ckpt
@@ -57,17 +68,9 @@ from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, HostCopies,
 from ..models.weights import shared_params
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
-
-
-def _not_ported(mesh, shard_space: bool) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "job placement over a device mesh is not ported yet; the port "
-            "batches on one card (mesh=None)")
-    if shard_space:
-        raise NotImplementedError(
-            "space sharding (one job's pixels over several cards) is not "
-            "ported")
+from .mesh import check_mesh, jobs_axis, placement
+from .shards import (Lanes, ShardedOpt, gather_lanes, run_on_shards,
+                     shard_bounds, split_rows)
 
 
 def _select_targets(targets, idx: torch.Tensor):
@@ -78,21 +81,37 @@ def _select_targets(targets, idx: torch.Tensor):
                  for content, grams in targets)
 
 
-def lane_leaves(opt, batch: int) -> Dict[str, torch.Tensor]:
+def _gather_targets(shard_targets, rows: Sequence[int], device):
+    """Rows `rows` of the lane-stacked targets that `shard_targets` (one
+    targets tuple per shard, in lane order) hold together, on `device`."""
+    first = shard_targets[0]
+    return tuple(
+        (gather_lanes([t[lvl][0] for t in shard_targets], rows, device),
+         tuple(gather_lanes([t[lvl][1][k] for t in shard_targets], rows,
+                            device) for k in range(len(first[lvl][1]))))
+        for lvl in range(len(first)))
+
+
+def lane_leaves(opt, batch: int) -> Dict[str, Any]:
     """An optimizer's named leaves (its leaf_specs's names: Adam's
     mu/nu/count, the whole L-BFGS lane state) with every leaf on a leading
     lane axis: a counter the lanes share (0-d) is spread over `batch`
-    lanes."""
+    lanes. A sharded batch's leaves are Lanes, one piece per shard."""
+    if isinstance(opt, ShardedOpt):
+        return {name: (leaf if isinstance(leaf, Lanes)
+                       else Lanes([leaf.expand(n) for n in opt.lanes]))
+                for name, leaf in opt.shard_leaves().items()}
     return {name: leaf.expand(batch) if leaf.dim() == 0 else leaf
             for name, leaf in opt.leaves().items()}
 
 
-def _gather_rows(leaves: Dict[str, torch.Tensor],
-                 rows: Sequence[int]) -> Dict[str, torch.Tensor]:
+def _gather_rows(leaves: Dict[str, Any],
+                 rows: Sequence[int]) -> Dict[str, Any]:
     """Rows `rows` of every lane-axis leaf, each copied on its own device
     (the JAX package's _gather_rows over a batch's state)."""
-    return {name: leaf.index_select(0, torch.as_tensor(
-                list(rows), dtype=torch.long, device=leaf.device))
+    return {name: (leaf.take(list(rows)) if isinstance(leaf, Lanes)
+                   else leaf.index_select(0, torch.as_tensor(
+                       list(rows), dtype=torch.long, device=leaf.device)))
             for name, leaf in leaves.items()}
 
 
@@ -113,7 +132,7 @@ def shrink_ladder(size: int, jobs_axis: int = 1) -> List[int]:
 
 
 class BatchedTransferJob:
-    """N same-shape style-transfer jobs as one batch of lanes on one card.
+    """N same-shape style-transfer jobs as one batch of lanes.
 
     Runs on CUDA unless device='cpu' is passed; raises when CUDA is
     unavailable and the CPU was not asked for. params: repo-format numpy
@@ -121,7 +140,15 @@ class BatchedTransferJob:
     is seeded with cfg.seed + i, as in the JAX package. pad_batch_to
     replicates the last job up to that many lanes; padded results are
     dropped in run(). graphs: as TransferJob's (graph replay by default
-    on CUDA, graphs=False eager)."""
+    on CUDA, graphs=False eager).
+
+    mesh (parallel/mesh.py): the batch is padded to a multiple of the
+    jobs axis A and runs as A shards of lanes, one per jobs row's device
+    (`device` may then only name that device type); `shards` holds them,
+    None without a mesh or on a jobs axis of 1. Its images, losses and
+    optimizer are then Lanes and a ShardedOpt (parallel/shards.py), and
+    there is no `targets` of the whole batch. shard_space raises
+    NotImplementedError."""
 
     def __init__(self, contents: Sequence[np.ndarray],
                  styles: Sequence[np.ndarray], cfg: Config, params=None,
@@ -132,12 +159,11 @@ class BatchedTransferJob:
         if len(contents) != len(styles) or not contents:
             raise ValueError("need one style per content and at least one "
                              "job")
-        _not_ported(mesh, shard_space)
+        check_mesh(mesh, shard_space)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = placement(mesh, device)
         _check_supported(cfg)
-        self.params = shared_params(params, cfg.seed, self.device)
-        self.graphs = use_graphs(self.device, graphs)
 
         c0 = contents[0].shape
         s0 = styles[0].shape
@@ -156,7 +182,20 @@ class BatchedTransferJob:
                 styles.append(styles[-1])
                 if init_overrides:
                     init_overrides.append(init_overrides[-1])
+        axis = jobs_axis(mesh)
+        while len(contents) % axis:  # a whole number of lanes per shard
+            contents.append(contents[-1])
+            styles.append(styles[-1])
+            if init_overrides:
+                init_overrides.append(init_overrides[-1])
         self.batch = len(contents)
+        self.shards: Optional[List[BatchedTransferJob]] = None
+        if axis > 1:
+            self._init_shards(contents, styles, init_overrides, params,
+                              graphs)
+            return
+        self.params = shared_params(params, cfg.seed, self.device)
+        self.graphs = use_graphs(self.device, graphs)
 
         # per-job pyramids, stacked along the lane axis
         c_stack: List[List[np.ndarray]] = []
@@ -194,23 +233,62 @@ class BatchedTransferJob:
         # losses' sum, which is each lane's own gradient
         self._loss_grad = LossGrad(self, self.targets, self.graphs)
 
+    def _init_shards(self, contents, styles, inits, params, graphs) -> None:
+        """The shards of a batch on a mesh: one one-card batch per jobs row,
+        built in its shard thread, from the lanes' init images (seeded by
+        their index in the whole batch)."""
+        cfg = self.cfg
+        if inits is None:
+            inits = [build_init_image(
+                cfg.init_method, c, s, cfg,
+                rng=np.random.default_rng(cfg.seed + i))[0]
+                for i, (c, s) in enumerate(zip(contents, styles))]
+        self._devices = self.mesh.jobs_devices()
+        per = self.batch // len(self._devices)
+        self.shards = run_on_shards(self._devices, [
+            partial(_ONE_CARD, contents[a:b], styles[a:b], cfg,
+                    params=params, init_overrides=inits[a:b], device=dev,
+                    graphs=graphs)
+            for dev, (a, b) in zip(self._devices,
+                                   shard_bounds([per] * len(self._devices)))])
+        self.level_shapes = self.shards[0].level_shapes
+        self.graphs = self.shards[0].graphs
+        self._x0 = Lanes([shard._x0 for shard in self.shards])
+
+    def _on_shards(self, fn, *per_shard) -> list:
+        """[fn(shard, *its items of per_shard)] over the shards, each in
+        its shard thread."""
+        return run_on_shards(self._devices, [
+            partial(fn, shard, *items)
+            for shard, *items in zip(self.shards, *per_shard)])
+
+    def _capture_sizes(self, sizes) -> None:
+        """Capture the evaluation of the first `size` lanes, for each size."""
+        with precision_gate(self.cfg.conv_precision):
+            for size in sizes:
+                idx = torch.arange(size, device=self.device)
+                eval_graph(self, _select_targets(self.targets, idx),
+                           self._x0[:size])
+
     def warm_shrink_graphs(self) -> int:
         """Capture the evaluation of every smaller batch size that run()'s
         convergence shrinking can re-form this batch at (shrink_ladder;
         the counterpart of the JAX package's warm_shrink_gathers), so
-        that no shrink captures mid-run. Returns how many graphs it
-        captured (sizes already cached capture nothing); 0 unless
-        cfg.stop_tol and cfg.stop_shrink are set, graphs are on and the
-        batch has more than one lane."""
+        that no shrink captures mid-run; on a mesh, each shard's part of
+        those sizes. Returns how many graphs it captured (sizes already
+        cached capture nothing); 0 unless cfg.stop_tol and cfg.stop_shrink
+        are set, graphs are on and the batch has more than one lane."""
         if not (self.cfg.stop_tol > 0.0 and self.cfg.stop_shrink
                 and self.batch > 1 and self.graphs):
             return 0
         before = graphs_mod.CAPTURES
-        with precision_gate(self.cfg.conv_precision):
-            for size in shrink_ladder(self.batch):
-                idx = torch.arange(size, device=self.device)
-                eval_graph(self, _select_targets(self.targets, idx),
-                           self._x0[:size])
+        if self.shards:
+            axis = len(self.shards)
+            sizes = [t // axis for t in shrink_ladder(self.batch, axis)]
+            self._on_shards(_ONE_CARD._capture_sizes,
+                            [sizes] * axis)
+        else:
+            self._capture_sizes(shrink_ladder(self.batch))
         return graphs_mod.CAPTURES - before
 
     def warm_live_chunk(self, n_steps: int) -> int:
@@ -224,39 +302,142 @@ class BatchedTransferJob:
         if not self.graphs:
             return 0
         before = graphs_mod.CAPTURES
-        with precision_gate(self.cfg.conv_precision):
-            eval_graph(self, self.targets, self._x0)
+        if self.shards:
+            self._on_shards(_ONE_CARD._capture_sizes,
+                            [[shard.batch] for shard in self.shards])
+        else:
+            self._capture_sizes([self.batch])
         return graphs_mod.CAPTURES - before
 
-    def init_opt(self, x: torch.Tensor,
-                 leaves: Optional[Dict[str, torch.Tensor]] = None):
-        """The optimizer of x's (B, n) lanes against this batch's targets
-        (the JAX package's _init_fn: L-BFGS evaluates x once), or one that
-        continues from `leaves` (lane_leaves's form) without evaluating."""
+    def init_opt(self, x, leaves: Optional[Dict[str, Any]] = None,
+                 targets=None):
+        """The optimizer of x's (B, n) lanes against this batch's targets,
+        or `targets` (the JAX package's _init_fn: L-BFGS evaluates x
+        once), or one that continues from `leaves` (lane_leaves's form)
+        without evaluating. On a mesh x is a Lanes with a piece per shard,
+        leaves hold Lanes or host tensors of the whole batch, targets is
+        one targets tuple per shard, and the result is a ShardedOpt."""
+        if self.shards:
+            bounds = shard_bounds([p.shape[0] for p in x.parts])
+            per_leaves = [None] * len(bounds)
+            if leaves is not None:
+                split = {name: (leaf.parts if isinstance(leaf, Lanes)
+                                else split_rows(leaf, bounds))
+                         for name, leaf in leaves.items()}
+                per_leaves = [{name: parts[i] for name, parts in split.items()}
+                              for i in range(len(bounds))]
+            opts = self._on_shards(_ONE_CARD.init_opt, x.parts, per_leaves,
+                                   targets or [None] * len(bounds))
+            return ShardedOpt(opts, [b - a for a, b in bounds])
         opt_cls = _Adam if self.cfg.optimizer == "adam" else _Lbfgs
+        loss_grad = (self._loss_grad if targets is None
+                     else LossGrad(self, targets, self.graphs))
         with precision_gate(self.cfg.conv_precision):
-            return opt_cls(self._loss_grad, x, self.cfg, leaves)
+            return opt_cls(loss_grad, x, self.cfg, leaves)
 
-    def chunk_steps(self, x: torch.Tensor, opt, start_steps: np.ndarray,
-                    n_steps: int):
+    def chunk_steps(self, x, opt, start_steps: np.ndarray, n_steps: int):
         """n_steps optimizer steps of every lane, lane b from its own
         0-based step start_steps[b] (the JAX package's _chunk_steps_fn,
         its vmapped batched_chunk_steps): each lane keeps its own lr
         schedule and Adam bias correction. With a uniform vector this is
         run()'s chunk bit for bit. Returns (x, the (B,) losses at the
-        chunk's last step)."""
+        chunk's last step); on a mesh both are Lanes."""
         steps = np.asarray(start_steps, np.int64)
+        if self.shards:
+            bounds = shard_bounds(opt.lanes)
+            xs, fs = zip(*self._on_shards(
+                _ONE_CARD.chunk_steps, x.parts, opt.opts,
+                [steps[a:b] for a, b in bounds], [n_steps] * len(bounds)))
+            return Lanes(xs), Lanes(fs)
         with precision_gate(self.cfg.conv_precision):
             for i in range(n_steps):
                 x, f = opt.step(x, steps + i)
         return x, f
 
+    def _steps(self, x, opt, done: int, k: int):
+        """run()'s chunk: k steps of every lane from step `done`."""
+        if self.shards:
+            xs, fs = zip(*self._on_shards(
+                _ONE_CARD._steps, x.parts, opt.opts,
+                [done] * len(opt.opts), [k] * len(opt.opts)))
+            return Lanes(xs), Lanes(fs)
+        for i in range(k):
+            x, f = opt.step(x, done + i)
+        return x, f
+
     @torch.no_grad()
+    def _losses_at(self, x, targets=None):
+        """The (B,) total losses at x against this batch's targets, or
+        `targets` (one tuple per shard on a mesh)."""
+        if self.shards:
+            return Lanes(self._on_shards(
+                _ONE_CARD._losses_at, x.parts,
+                targets or [None] * len(self.shards)))
+        with precision_gate(self.cfg.conv_precision):
+            total, _ = self._loss_fn(
+                self.params, self.targets if targets is None else targets, x)
+        return total
+
     def initial_losses(self) -> np.ndarray:
         """(real_batch,) total losses at the init images."""
-        with precision_gate(self.cfg.conv_precision):
-            total, _ = self._loss_fn(self.params, self.targets, self._x0)
-        return total[:self.real_batch].cpu().numpy()
+        return self._losses_at(self._x0).cpu().numpy()[:self.real_batch]
+
+    def _place(self, x_host: torch.Tensor):
+        """A whole batch's host rows on the batch's device, or split over
+        its shards (the layout of a batch of that many lanes)."""
+        if not self.shards:
+            return x_host.to(self.device)
+        axis = len(self.shards)
+        if x_host.shape[0] % axis:
+            raise ValueError(f"{x_host.shape[0]} lanes do not split over a "
+                             f"jobs axis of {axis}")
+        bounds = shard_bounds([x_host.shape[0] // axis] * axis)
+        return Lanes([x_host[a:b].to(dev)
+                      for dev, (a, b) in zip(self._devices, bounds)])
+
+    def _targets_of(self, lanes: Sequence[int]):
+        """The construction targets of the given lanes, in that order: one
+        tuple (one per shard of a batch of len(lanes) lanes on a mesh)."""
+        if not self.shards:
+            return _select_targets(self.targets, torch.as_tensor(
+                list(lanes), dtype=torch.long, device=self.device))
+        axis = len(self.shards)
+        bounds = shard_bounds([len(lanes) // axis] * axis)
+        return [_gather_targets([sh.targets for sh in self.shards],
+                                lanes[a:b], dev)
+                for dev, (a, b) in zip(self._devices, bounds)]
+
+    def _select_lanes(self, x, f, opt, targets, sel: List[int]):
+        """Keep (and repeat) lanes `sel` of a running batch: its images,
+        losses, optimizer state and targets. On a mesh the lanes re-form
+        over the shards, and a lane may move to another card."""
+        if not self.shards:
+            idx = torch.as_tensor(sel, dtype=torch.long, device=x.device)
+            x = x.index_select(0, idx)
+            f = f.index_select(0, idx)
+            opt.select(sel)
+            targets = _select_targets(
+                self.targets if targets is None else targets, idx)
+            opt.loss_grad = LossGrad(self, targets, self.graphs)
+            return x, f, opt, targets
+        axis = len(self.shards)
+        bounds = shard_bounds([len(sel) // axis] * axis)
+        old = targets or [sh.targets for sh in self.shards]
+
+        def regather(parts):
+            # a leaf the optimizer keeps on the host stays there
+            host = parts[0].device.type == "cpu"
+            return Lanes([gather_lanes(parts, sel[a:b],
+                                       parts[0].device if host else dev)
+                          for dev, (a, b) in zip(self._devices, bounds)])
+
+        x, f = regather(x.parts), regather(f.parts)
+        leaves = {name: (regather(leaf.parts) if isinstance(leaf, Lanes)
+                         else leaf)  # a counter the lanes share
+                  for name, leaf in opt.shard_leaves().items()}
+        targets = [_gather_targets(old, sel[a:b], dev)
+                   for dev, (a, b) in zip(self._devices, bounds)]
+        return x, f, self.init_opt(x, leaves, targets), targets
 
     def run(self, iters_num: Optional[int] = None,
             stream_every: Optional[int] = None,
@@ -270,9 +451,9 @@ class BatchedTransferJob:
 
         yield_images=False skips the device->host image copy on
         intermediate chunks: those yield (done, None, losses), the losses
-        as a device tensor over every lane (padding included) unless a
-        convergence check already fetched them; the final chunk always
-        carries the images.
+        as a device tensor over every lane (padding included; on a mesh a
+        host tensor) unless a convergence check already fetched them; the
+        final chunk always carries the images.
         When images are streamed, cfg.pipeline_streaming (default on)
         yields chunk k only after chunk k+1 was dispatched, as
         TransferJob.run does (HostCopies; Adam only, and off under
@@ -282,28 +463,30 @@ class BatchedTransferJob:
         cfg.stop_tol > 0: a job whose relative loss change over a chunk is
         <= stop_tol is done (latched). With cfg.stop_shrink a done job
         leaves the batch at the chunk boundary (its result freezes there)
-        and the remaining lanes re-form at shrink_target's size by
-        index_select on every state tensor; without it the batch stops
-        once every job has converged.
+        and the remaining lanes re-form at shrink_target's size (a
+        multiple of the jobs axis on a mesh) by index_select on every
+        state tensor; without it the batch stops once every job has
+        converged.
 
         checkpoint_path / checkpoint_every / resume: as TransferJob.run,
         for the whole batch. After a shrink the file holds the live lanes;
         its extra carries the lane composition, the stop bookkeeping and
         the frozen jobs' losses, its aux their frozen rows, so a resume
-        continues at the shrunken size bit for bit.
+        continues at the shrunken size bit for bit. On a mesh the file
+        holds the lanes in order, as an unsharded batch's does.
         """
         cfg = self.cfg
         iters = iters_num if iters_num is not None else cfg.iters_num
         chunk = stream_every if stream_every is not None else cfg.stream_every
         chunk = max(1, min(chunk, iters))
+        axis = len(self.shards) if self.shards else 1
         # the construction batch size keys the fingerprint; a shrunken
         # state's own size rides in the extra's lane composition
         fp = str(("batched", self.batch)
                  + _config_key(cfg, self.level_shapes))
         opt_cls = _Adam if cfg.optimizer == "adam" else _Lbfgs
 
-        targets = self.targets  # shrinking selects its lanes
-        loss_grad = self._loss_grad  # and moves to the graph of its size
+        targets = None  # the construction targets; shrinking selects lanes
 
         x = self._x0.clone()
         done = 0
@@ -340,7 +523,7 @@ class BatchedTransferJob:
             return out
 
         def materialize(done_k, x_k, f_k):
-            rows = x_k.reshape((len(lane_orig),) + top[1:]).cpu().numpy()
+            rows = x_k.cpu().numpy().reshape((len(lane_orig),) + top[1:])
             lanes = lane_of()
             imgs_k = np.stack([
                 unprepare_img(finished[orig][0] if orig in finished
@@ -366,7 +549,7 @@ class BatchedTransferJob:
                 if finished:
                     aux = {"finished_rows": np.stack(
                         [row for _o, (row, _l) in sorted(finished.items())])}
-            ckpt.save_checkpoint(checkpoint_path, x, opt.leaves(), done,
+            ckpt.save_checkpoint(checkpoint_path, x.cpu(), opt.leaves(), done,
                                  fingerprint=fp, extra=extra, aux=aux)
 
         leaves = None
@@ -381,7 +564,7 @@ class BatchedTransferJob:
             x_saved, leaves, done, ck_extra, ck_aux = ckpt.load_checkpoint(
                 checkpoint_path, opt_cls.leaf_specs(cfg, cur, x.shape[1]),
                 fingerprint=fp, with_extra=True, with_aux=True)
-            x = x_saved.to(self.device)
+            x = self._place(x_saved)
             f_prev = {int(k): v
                       for k, v in ck_extra.get("f_prev", {}).items()}
             latched = set(ck_extra.get("latched", ()))
@@ -389,19 +572,13 @@ class BatchedTransferJob:
                 finished[int(orig)] = (ck_aux["finished_rows"][i].numpy(),
                                        float(loss))
             if cur != self.batch:
-                targets = _select_targets(
-                    self.targets, torch.as_tensor(lane_src, dtype=torch.long,
-                                                  device=self.device))
-                loss_grad = LossGrad(self, targets, self.graphs)
+                targets = self._targets_of(lane_src)
             if done >= iters or ck_extra.get("converged"):
                 # a finished batch: its final images, and the live lanes'
                 # losses at them beside the frozen jobs' own
-                with precision_gate(cfg.conv_precision), torch.no_grad():
-                    f_live, _ = self._loss_fn(self.params, targets, x)
-                yield materialize(done, x, f_live)
+                yield materialize(done, x, self._losses_at(x, targets))
                 return
-        with precision_gate(cfg.conv_precision):
-            opt = opt_cls(loss_grad, x, cfg, leaves)
+        opt = self.init_opt(x, leaves, targets)
         last_saved = done
         lookahead = yield_images and async_steps(cfg) and not check_stop
         copies = HostCopies()
@@ -409,8 +586,7 @@ class BatchedTransferJob:
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
                 k = min(chunk, iters - done)
-                for i in range(k):
-                    x, f = opt.step(x, done + i)
+                x, f = self._steps(x, opt, done, k)
                 done += k
                 converged = False
                 f_np = None
@@ -444,27 +620,21 @@ class BatchedTransferJob:
                     if ready and not still:
                         converged = True  # every remaining job is done
                     elif ready and still and shrink and done < iters:
-                        tgt = shrink_target(len(still))
+                        tgt = shrink_target(len(still), axis)
                         if tgt < len(lane_orig):
                             # freeze the converged jobs' results now, then
                             # keep the remaining lanes, re-padded by
                             # repeating the last one
-                            rows = x.reshape((len(lane_orig),) + top[1:])
                             for lane, orig, cur in ready:
-                                finished[orig] = (rows[lane].cpu().numpy(),
-                                                  cur)
+                                finished[orig] = (
+                                    x[lane].reshape(top[1:]).cpu().numpy(),
+                                    cur)
                             sel = still + [still[-1]] * (tgt - len(still))
                             print(f"stop_tol: {len(ready)} job(s) converged at "
                                   f"step {done}; batch {len(lane_orig)} -> "
                                   f"{tgt}", file=sys.stderr)
-                            idx = torch.as_tensor(sel, dtype=torch.long,
-                                                  device=x.device)
-                            x = x.index_select(0, idx)
-                            f = f.index_select(0, idx)
-                            opt.select(sel)
-                            targets = _select_targets(targets, idx)
-                            opt.loss_grad = LossGrad(self, targets,
-                                                     self.graphs)
+                            x, f, opt, targets = self._select_lanes(
+                                x, f, opt, targets, sel)
                             f_np = f_np[sel]
                             lane_orig = ([lane_orig[ln] for ln in still]
                                          + [None] * (tgt - len(still)))
@@ -481,7 +651,7 @@ class BatchedTransferJob:
                 elif f_np is not None:
                     out = done, None, compose_losses(f_np)
                 else:
-                    out = done, None, f
+                    out = done, None, f.cpu() if self.shards else f
             if lookahead:
                 yield from copies.after_chunk(done, x, f, done >= iters,
                                               materialize)
@@ -489,6 +659,11 @@ class BatchedTransferJob:
             yield out
             if converged:
                 return
+
+
+# the class a sharded batch builds its shards with (a caller that patches
+# the module's BatchedTransferJob sees one batch, not its shards too)
+_ONE_CARD = BatchedTransferJob
 
 
 def bucket_jobs(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]]
@@ -678,11 +853,17 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     every group of the same queue up from its file (a finished group
     returns its images without running again); without it a file left by
     an earlier run is removed first. A retry resumes from the group's last
-    save. A mesh and shard_space are not ported yet and raise
-    NotImplementedError.
+    save.
+
+    mesh (parallel/mesh.py): each batched group runs over the mesh's jobs
+    axis A. The automatic group cap is the one-card cap times A, an
+    explicit max_batch is rounded down to a multiple of A, and a group is
+    padded to a multiple of A; a 'sequential' group of one job runs
+    without the mesh (on its first device), not padded over A cards, as
+    in the JAX package. shard_space raises NotImplementedError.
     """
-    _not_ported(mesh, shard_space)
-    dev = resolve_device(device)
+    check_mesh(mesh, shard_space)
+    dev = placement(mesh, device)
     if checkpoint_dir is not None and checkpoint_every is None:
         checkpoint_every = cfg.stream_every  # the CLI's default too
     if checkpoint_dir is not None and cfg.optimizer == "lbfgs" and jobs:
@@ -704,11 +885,21 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     policy = resolve_batch_policy(cfg, batch_policy)
     results: Dict[str, np.ndarray] = {}
     failures: Dict[str, Exception] = {}
+    # the one-card cap is per card: a jobs axis of A takes A times as
+    # many jobs, and a group is a multiple of A or its padding replicas
+    # would exceed the budget the cap keeps
+    axis = jobs_axis(mesh)
     for bucket in bucket_jobs(jobs).values():
-        cap = resolve_group_cap(cfg, bucket[0][1].shape, 1, policy, max_batch)
+        cap = resolve_group_cap(cfg, bucket[0][1].shape, axis, policy,
+                                max_batch)
         groups = [bucket[i:i + cap] for i in range(0, len(bucket), cap)]
         for group in groups:
             ids = [j[0] for j in group]
+            # a sequential group of one job is not padded over the jobs
+            # axis (A - 1 replicas, and the lockstep the routing avoids)
+            group_mesh = mesh if (policy != "sequential"
+                                  or axis == 1) else None
+            group_dev = None if group_mesh is not None else dev
             ckpt_path = None
             if checkpoint_dir is not None:
                 os.makedirs(checkpoint_dir, exist_ok=True)
@@ -734,7 +925,8 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
                 try:
                     batch = BatchedTransferJob(
                         [j[1] for j in group], [j[2] for j in group], cfg,
-                        params=params, pad_batch_to=pad_to, device=dev)
+                        params=params, mesh=group_mesh, pad_batch_to=pad_to,
+                        device=group_dev)
                     imgs = None
                     for done, imgs, losses in batch.run(
                             yield_images=stream_images,

@@ -21,10 +21,15 @@ A live chunk replays the same captured evaluation of (bucket, lanes) as
 ``run()`` (engine/graphs.py); the optimizer's update stays eager, per
 lane. Rebuilding releases the old batch before the new one is built.
 
+On a mesh (parallel/mesh.py) the batch is a sharded one (parallel/
+batch.py): its capacity is the one-card cap times the jobs axis, a
+rebuild is made on the mesh, and the survivors' rows are transplanted
+across cards, each to the shard its new lane falls in.
+
 Divergences from the JAX package (deliberate; ROADMAP Queue 3): a
 boundary whose joins all overflowed the capacity and where no lane left
 does not rebuild; the last chunk is clamped so that no lane runs past
-iters_num. Runs on one card: a mesh raises NotImplementedError.
+iters_num.
 """
 
 from __future__ import annotations
@@ -35,10 +40,12 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, resolve_device
+from ..config import Config
 from ..engine.init_pipeline import build_init_image
 from ..utils.image import unprepare_img
-from .batch import _gather_rows, _not_ported, lane_leaves, resolve_group_cap
+from .batch import _gather_rows, lane_leaves, resolve_group_cap
+from .mesh import check_mesh, jobs_axis, placement
+from .shards import Lanes
 
 # NOTE: BatchedTransferJob is looked up through its module at call time
 # (not imported at module load) so test spies patching
@@ -49,10 +56,14 @@ def _scatter_head(dst: Dict[str, torch.Tensor],
                   src: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """dst's leaves with rows [0:n] overwritten by src's n rows, in place
     (the state transplant of a rebuild), but for a counter the lanes
-    shared (an expanded 0-d leaf), which is copied first."""
+    shared (an expanded 0-d leaf), which is copied first. A sharded
+    batch's Lanes take each row on the card of the shard it lands in."""
     out = {}
     for name, leaf in dst.items():
         rows = src[name]
+        if isinstance(leaf, Lanes):
+            out[name] = leaf.with_head(rows)
+            continue
         if leaf.stride(0) == 0:
             leaf = leaf.clone()
         leaf[:rows.shape[0]] = rows.to(leaf.device)
@@ -78,16 +89,18 @@ class LiveBatchRunner:
     Runs on CUDA unless device='cpu' is passed; raises when CUDA is
     unavailable and the CPU was not asked for. params: repo-format numpy
     weights, or None for cfg.seed's (shared with every job of that
-    source, so live batches replay the warmed graphs).
+    source, so live batches replay the warmed graphs). mesh: the batch is
+    sharded over its jobs axis (parallel/mesh.py).
     """
 
     def __init__(self, cfg: Config, params=None, mesh=None,
                  max_batch: Optional[int] = 8,
                  stream_images: bool = True,
                  chunk: Optional[int] = None, device=None):
-        _not_ported(mesh, False)
+        check_mesh(mesh)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = placement(mesh, device)
         self.params = params
         self.max_batch = max_batch
         self.stream_images = stream_images
@@ -152,7 +165,8 @@ class LiveBatchRunner:
     # -- boundary maintenance ----------------------------------------------
 
     def _capacity(self, content_shape) -> int:
-        return resolve_group_cap(self.cfg, content_shape, 1, "batched",
+        return resolve_group_cap(self.cfg, content_shape,
+                                 jobs_axis(self.mesh), "batched",
                                  self.max_batch)
 
     def _live_lanes(self) -> List[int]:
@@ -205,7 +219,7 @@ class LiveBatchRunner:
             [self._specs[t][0] for t in tids],
             [self._specs[t][1] for t in tids], self.cfg, params=self.params,
             init_overrides=[self._specs[t][2] for t in tids],
-            pad_batch_to=pad_to, device=self.device)
+            pad_batch_to=pad_to, mesh=self.mesh, device=self.device)
         x = bj._x0.clone()
         opt = bj.init_opt(x)
         if old_state is not None:
@@ -261,7 +275,8 @@ class LiveBatchRunner:
         top = bj.level_shapes[0]
         rows = None
         if self.stream_images:
-            rows = self._x.reshape((batch_dispatched,) + top[1:]).cpu().numpy()
+            rows = self._x.cpu().numpy().reshape((batch_dispatched,)
+                                                 + top[1:])
         check_stop = self.cfg.stop_tol > 0.0
         progress: List[tuple] = []
         finished: Dict[str, tuple] = {}

@@ -1,4 +1,4 @@
-"""The device memory one batched step needs, on one card.
+"""The device memory one batched step needs, on each card.
 
 The counterpart of the JAX package's ``parallel/memory.py``
 (``aot_memory_stats``), which compiles the batched chunk ahead of time and
@@ -29,20 +29,30 @@ and on two lanes and extrapolated to the batch, which is exact: every
 saved tensor carries the lane axis except the pyramid's resize matrices,
 which do not grow with it. So the count never holds more than two lanes'
 activations, and a batch too large for the card can be predicted on it.
+
+On a jobs mesh (parallel/mesh.py) each card holds one shard of the batch
+padded to a multiple of the jobs axis A: the counts are those of
+``lanes_per_card`` = ceil(batch / A) lanes, and on CUDA ``per_card``
+lists each shard's device with the peak measured there over the same
+evaluation and step of the sharded batch, each shard in its own thread
+(a mesh that names one card twice measures both shards' peak on it).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import Config, precision_gate, resolve_device
+from ..config import Config, precision_gate
 from ..engine.pyramid import resize_to_level
 from ..engine.transfer import _Adam, _Lbfgs, drop_graph, level_pass
 from ..ops.resize import downscale2x
-from .batch import BatchedTransferJob, _not_ported, _select_targets
+from .batch import BatchedTransferJob, _select_targets
+from .mesh import check_mesh, jobs_axis, placement
+from .shards import run_on_shards
 
 
 def _nbytes(tensors: Iterable[torch.Tensor]) -> int:
@@ -120,10 +130,13 @@ def memory_stats(cfg: Config, content_hw: Tuple[int, int], batch: int = 1,
     unless limit_bytes is given and the prediction exceeds it (then
     peak_bytes is None). The measurement captures the evaluation anew:
     the cached graph of this job's key is dropped before and after.
-    mesh and shard_space raise NotImplementedError, as in
+    mesh: the counts are per card, for lanes_per_card lanes (see the
+    module docstring). shard_space raises NotImplementedError, as in
     BatchedTransferJob."""
-    _not_ported(mesh, shard_space)
-    dev = resolve_device(device)
+    check_mesh(mesh, shard_space)
+    dev = placement(mesh, device)
+    axis = jobs_axis(mesh)
+    lanes = -(-batch // axis)  # per card, the batch padded to the axis
     rng = np.random.default_rng(cfg.seed)
     h, w = content_hw
     contents = [rng.random((h, w, 3), dtype=np.float32)
@@ -131,38 +144,59 @@ def memory_stats(cfg: Config, content_hw: Tuple[int, int], batch: int = 1,
     style = rng.random((h, w, 3), dtype=np.float32)
     inits = [resize_to_level(c, cfg.levels_num - 1, cfg.base_diameter)
              for c in contents]
-    job = BatchedTransferJob(contents, [style] * batch, cfg, device=dev,
-                             init_overrides=inits)
+    job = BatchedTransferJob(contents[:lanes], [style] * lanes, cfg,
+                             device=dev, init_overrides=inits[:lanes])
     n = job._x0.shape[1]
     opt_cls = _Adam if cfg.optimizer == "adam" else _Lbfgs
     argument = (_nbytes(_argument_tensors(job))
-                + _nbytes(opt_cls.leaf_specs(cfg, batch, n).values()))
+                + _nbytes(opt_cls.leaf_specs(cfg, lanes, n).values()))
 
-    if batch <= 2:
-        saved, peak = _count(job, batch)
+    if lanes <= 2:
+        saved, peak = _count(job, lanes)
     else:
         one, two = _count(job, 1), _count(job, 2)
-        saved, peak = (a + (batch - 1) * (b - a) for a, b in zip(one, two))
+        saved, peak = (a + (lanes - 1) * (b - a) for a, b in zip(one, two))
     out = {"argument_bytes": argument, "saved_activation_bytes": saved,
            "recompute_peak_bytes": peak,
            "predicted_bytes": argument + saved + peak}
+    if mesh is not None:
+        out.update(jobs_axis=axis, lanes_per_card=lanes)
     if dev.type != "cuda":
         return out
 
     out["peak_bytes"] = None
     if limit_bytes is not None and out["predicted_bytes"] > limit_bytes:
         return out
-    drop_graph(job, batch)  # so that the evaluation below captures
+    if axis > 1:
+        del job
+        sharded = BatchedTransferJob(contents, [style] * batch, cfg,
+                                     mesh=mesh, init_overrides=inits)
+        out["per_card"] = [
+            dict(device=str(d), **m) for d, m in zip(
+                sharded._devices, run_on_shards(
+                    sharded._devices,
+                    [partial(_measure, shard) for shard in sharded.shards]))]
+        out["peak_bytes"] = max(c["peak_bytes"] for c in out["per_card"])
+        return out
+    out.update(_measure(job))
+    return out
+
+
+def _measure(job) -> dict:
+    """The peak allocated on job's card over one captured evaluation and
+    one optimizer step of its lanes, and what was allocated before."""
+    dev = job.device
+    drop_graph(job, job.batch)  # so that the evaluation below captures
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
-    out["allocated_before_bytes"] = torch.cuda.memory_allocated(dev)
+    before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     x = job._x0.clone()
     opt = job.init_opt(x)
-    with precision_gate(cfg.conv_precision):
+    with precision_gate(job.cfg.conv_precision):
         opt.step(x, 0)
     torch.cuda.synchronize(dev)
-    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
     del opt
-    drop_graph(job, batch)
-    return out
+    drop_graph(job, job.batch)
+    return {"allocated_before_bytes": before, "peak_bytes": peak}

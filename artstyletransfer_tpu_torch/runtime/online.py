@@ -33,8 +33,9 @@ retries at all); the wait is scheduled on the event loop, so the other
 buckets' chunks and new arrivals go on meanwhile. An error outside a
 chunk fails every task the live drive holds and drops its runners, where
 the JAX package fails only the tasks it drained first.
-Runs on CUDA unless device='cpu' is passed; a mesh raises
-NotImplementedError (one card).
+Runs on CUDA unless device='cpu' is passed. A mesh (parallel/mesh.py;
+the frontends pass default_serving_mesh()) reaches both paths: each
+live batch and each round is sharded over its jobs axis.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..config import resolve_device
-from ..parallel.batch import _not_ported
+from ..parallel.mesh import check_mesh, placement
 from .executor import call_in_loop, prune_progress, record_failure
 
 
@@ -75,8 +75,8 @@ class OnlineBatchingExecutor:
         # unit of execution here is the batched queue (tests inject
         # `queue_runner` instead)
         del engine
-        _not_ported(mesh, False)
-        self.device = resolve_device(device)
+        check_mesh(mesh)
+        self.device = placement(mesh, device)
         self.__config = config
         self.__report_progress = report_progress
         self.__report_failure = report_failure
@@ -326,7 +326,7 @@ class OnlineBatchingExecutor:
                 runner = self._runners.get(key)
                 if runner is None:
                     runner = self._runners[key] = LiveBatchRunner(
-                        self.__config, params=self.params,
+                        self.__config, params=self.params, mesh=self.mesh,
                         max_batch=self.max_batch,
                         stream_images=self.stream_images,
                         device=self.device)

@@ -186,6 +186,29 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               engine loss at the same image, its gradient finite; the
               Gram, Gram-backward and TV forward kernels launched and no
               plain kernel version called.
+14. mesh    — jobs placed over several cards (parallel/mesh.py): every
+              visible card when there are two or more, else a rehearsal
+              mesh of the one card twice (jobs_mesh(devices=[cuda:0,
+              cuda:0]): the shard threads, per-shard graphs and the
+              lanes' moves between shards on a real card), said on its
+              own line ({"mesh": "rehearsal, 1 card"}). Printed: the card
+              count and each card's name and power limit; the queue
+              phase's 8 Adam jobs at conv_precision="highest" through
+              run_job_queue on the mesh and on no mesh, twice each
+              (job-steps/s of both runs); each mesh job within PSNR > 50
+              dB and loss rtol 1e-3 of itself on no mesh in a one-card
+              batch of its shard's lanes, and within loss rtol 1e-3 of
+              the no-mesh queue (its PSNR printed: other lane counts sum
+              cuDNN's convolutions in other orders); a unit L-BFGS
+              batch of 2A lanes (A the jobs axis; stop_tol, stop_shrink)
+              on the mesh whose A black lanes leave at step 4, so each
+              lane left moves to another shard (real lanes' losses
+              finite and falling); one
+              OnlineBatchingExecutor(mesh=...) session, two Adam jobs and
+              a joiner; memory_stats(mesh=...) of a 4-lane 512 px batch
+              per card beside each card's measured peak. Counters zeroed
+              before and read after each run, per card: every card of the
+              mesh must show gram, gram_bwd, tv and tv_bwd.
 
 Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
@@ -200,6 +223,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -274,12 +298,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def cards_smi() -> list:
+    """nvidia-smi's name and power limit of every visible card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def nvidia_smi() -> str:
+    return cards_smi()[0]
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2083,7 +2112,7 @@ class PlainSpy:
 
 
 def online_session(cfg, first, later, params, wait_for=1,
-                   canonicalize=True):
+                   canonicalize=True, mesh=None):
     """OnlineBatchingExecutor on the card: `first` jobs added at once,
     `later` once `wait_for` progress reports have arrived. Returns (the
     executor, {tid: seconds added -> first progress}, {tid: [(percent,
@@ -2108,7 +2137,7 @@ def online_session(cfg, first, later, params, wait_for=1,
         ex = OnlineBatchingExecutor(cfg, params=params, verbose=False,
                                     metrics=Metrics(), report_progress=report,
                                     max_batch=16, canonicalize=canonicalize,
-                                    device="cuda")
+                                    mesh=mesh, device="cuda")
         for tid, c, s_img in first:
             added[tid] = time.perf_counter()
             await ex.add_task(tid, ContentStylePair(("c", c), ("s", s_img)))
@@ -3274,6 +3303,268 @@ def phase_builders():
     return {"builders": launches}
 
 
+MESH_ADAM = dict(levels_num=2, base_diameter=256, optimizer="adam",
+                 iters_num=20, stream_every=5, conv_precision="highest")
+MESH_LBFGS = dict(levels_num=2, base_diameter=256, optimizer="lbfgs",
+                  lbfgs_t_init="unit", iters_num=8, stream_every=2,
+                  stop_tol=1e-4, stop_shrink=True)
+MESH_GATE = dict(psnr_db=50.0, loss_rtol=1e-3)  # PERF.md §2's queue gate
+ON_EVERY_CARD = ("gram", "gram_bwd", "tv", "tv_bwd")
+
+
+def per_card(mesh, counts, path):
+    """The launches of each card of the mesh on a path; every card must
+    show the Gram and TV kernels both ways."""
+    out = {}
+    for dev in dict.fromkeys(mesh.jobs_devices()):
+        c = counts.get(dev.index, {})
+        out[str(dev)] = {k: c.get(k, 0)
+                         for k in ON_EVERY_CARD + ("conv_relu",)}
+        missing = [k for k in ON_EVERY_CARD if not c.get(k)]
+        if missing:
+            raise AssertionError(f"mesh {path}: {dev} launched none of "
+                                 f"{missing} ({c})")
+    return out
+
+
+def timed_queue(jobs, cfg, params, mesh):
+    """run_job_queue on the mesh (or none) twice: the first run captures
+    the graphs of its lane counts, the second is timed. Returns (results,
+    {tid: last reported loss}, job-steps/s of each run, launches per
+    card and in total over both runs)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import (LAUNCHES,
+                                                     device_launches,
+                                                     reset_launches)
+    from artstyletransfer_tpu_torch.parallel import run_job_queue
+
+    rates = []
+    reset_launches()  # ---- this run of the path starts here ----
+    for _ in range(2):
+        losses = {}
+
+        def progress(tid, pct, img, loss, losses=losses):
+            losses[tid] = loss
+
+        t0 = time.time()
+        results, failures = run_job_queue(jobs, cfg, params=params,
+                                          progress=progress, mesh=mesh,
+                                          canonicalize_styles=True)
+        torch.cuda.synchronize()
+        rates.append(len(jobs) * cfg.iters_num / (time.time() - t0))
+        if failures:
+            raise next(iter(failures.values()))
+    return results, losses, rates, device_launches(), dict(LAUNCHES)
+
+
+def shard_references(jobs, cfg, params, mesh):
+    """{tid: (final image, final loss)} of each job run with no mesh in a
+    one-card batch of the lanes its shard holds on the mesh: run_job_queue's
+    groups (one per bucket here), padded to the jobs axis, each lane's init
+    seeded by its index in the group, cut into the shards' lanes."""
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.engine.init_pipeline import (
+        build_init_image)
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+    from artstyletransfer_tpu_torch.parallel.batch import (
+        bucket_jobs, canonicalize_style)
+
+    axis = mesh.shape["jobs"]
+    out = {}
+    canon = [(t, c, canonicalize_style(s, cfg)) for t, c, s in jobs]
+    for group in bucket_jobs(canon).values():
+        lanes = group + [group[-1]] * (-len(group) % axis)
+        inits = [build_init_image(cfg.init_method, c, s, cfg,
+                                  rng=np.random.default_rng(cfg.seed + i))[0]
+                 for i, (_t, c, s) in enumerate(lanes)]
+        per = len(lanes) // axis
+        for k, dev in enumerate(mesh.jobs_devices()):
+            sl = slice(k * per, (k + 1) * per)
+            part = lanes[sl]
+            _d, imgs, losses = list(BatchedTransferJob(
+                [j[1] for j in part], [j[2] for j in part], cfg,
+                params=params, init_overrides=inits[sl],
+                device=dev).run())[-1]
+            for (tid, _c, _s), img, loss in zip(part, imgs, losses):
+                out.setdefault(tid, (img, float(loss)))
+    return out
+
+
+def mesh_queue(mesh, params):
+    """The queue phase's 8 Adam jobs at 'highest' through run_job_queue on
+    the mesh and on no mesh. Each mesh job within MESH_GATE of itself run
+    with no mesh in a one-card batch of its shard's lanes
+    (shard_references); against the whole group on one card the loss
+    gate (PERF.md §2's queue-lane rtol 1e-3) holds and the PSNR is
+    printed: a batch of other lanes sums cuDNN's convolutions in another
+    order, and 20 Adam steps carry that into the images (PERF.md §6 PR
+    13)."""
+    from artstyletransfer_tpu_torch.config import Config
+
+    adam_jobs, _lbfgs = queue_jobs()
+    cfg = Config(**MESH_ADAM)
+    res_m, loss_m, rates_m, cards, total = timed_queue(adam_jobs, cfg,
+                                                       params, mesh)
+    res_1, loss_1, rates_1, _c, _t = timed_queue(adam_jobs, cfg, params,
+                                                 None)
+    refs = shard_references(adam_jobs, cfg, params, mesh)
+    jobs = {tid: dict(psnr_db=psnr(res_m[tid], refs[tid][0]),
+                      loss_rel=abs(loss_m[tid] / refs[tid][1] - 1.0),
+                      vs_one_card_psnr_db=psnr(res_m[tid], res_1[tid]),
+                      vs_one_card_loss_rel=abs(loss_m[tid] / loss_1[tid]
+                                               - 1.0))
+            for tid, _c2, _s in adam_jobs}
+    rec = dict(phase="mesh", run="queue_adam_highest", jobs=len(adam_jobs),
+               steps=cfg.iters_num, job_steps_per_s_mesh=rates_m,
+               job_steps_per_s_no_mesh=rates_1, vs_no_mesh=jobs,
+               launches_per_card=per_card(mesh, cards, "queue"))
+    emit(rec)
+    RECORD.setdefault("mesh", []).append(rec)
+    for tid, j in jobs.items():
+        if not (j["psnr_db"] > MESH_GATE["psnr_db"]
+                and j["loss_rel"] <= MESH_GATE["loss_rtol"]
+                and j["vs_one_card_loss_rel"] <= MESH_GATE["loss_rtol"]):
+            raise AssertionError(f"mesh job {tid}: {j} outside {MESH_GATE}")
+    return total
+
+
+def mesh_shrink(mesh, params):
+    """A unit L-BFGS batch of 2A lanes on a mesh whose jobs axis is A; its
+    first A lanes are black (loss and gradient 0), latch and leave at step
+    4, and the A lanes left re-form one a shard, so each moves to another
+    shard's card (the first A shards'). The real lanes' losses must be
+    finite and falling."""
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.engine.pyramid import resize_to_level
+    from artstyletransfer_tpu_torch.kernels import (LAUNCHES,
+                                                     device_launches,
+                                                     reset_launches)
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+
+    axis = mesh.shape["jobs"]
+    cfg = Config(**MESH_LBFGS)
+    pairs = [synthetic_pair(seed=40 + i) for i in range(axis)]
+    black = np.zeros_like(pairs[0][0])
+    contents = [black] * axis + [c for c, _s in pairs]
+    styles = [black] * axis + [s for _c, s in pairs]
+    inits = [resize_to_level(c, cfg.levels_num - 1, cfg.base_diameter)
+             for c in contents]
+    job = BatchedTransferJob(contents, styles, cfg, params=params,
+                             mesh=mesh, init_overrides=inits)
+    warmed = job.warm_shrink_graphs()
+    err = io.StringIO()
+    reset_launches()  # ---- this run of the path starts here ----
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        out = [(done, [float(v) for v in losses])
+               for done, _imgs, losses in job.run(yield_images=False)]
+    wall = time.time() - t0
+    cards, total = device_launches(), dict(LAUNCHES)  # ---- ends here ----
+    rec = dict(phase="mesh", run="lbfgs_unit_shrink", lanes=2 * axis,
+               shrink=err.getvalue().strip(), losses=out, wall_s=wall,
+               shrink_graphs_warmed=warmed,
+               launches_per_card=per_card(mesh, cards, "lbfgs shrink"))
+    emit(rec)
+    RECORD.setdefault("mesh", []).append(rec)
+    if f"batch {2 * axis} -> {axis}" not in rec["shrink"]:
+        raise AssertionError(f"mesh lbfgs: no {2 * axis} -> {axis} shrink "
+                             f"({rec['shrink']})")
+    first, last = out[0][1], out[-1][1]
+    for lane in range(axis, 2 * axis):
+        if not (np.isfinite(last[lane]) and last[lane] < first[lane]):
+            raise AssertionError(f"mesh lbfgs lane {lane}: losses {out} are "
+                                 "not finite and falling")
+    return total
+
+
+def mesh_online(mesh, params):
+    """One OnlineBatchingExecutor session on the mesh: two Adam jobs, and a
+    joiner once the first progress arrives."""
+    import numpy as np
+
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.kernels import (LAUNCHES,
+                                                     device_launches,
+                                                     reset_launches)
+
+    jobs, _lbfgs = online_jobs()
+    cfg = Config(**dict(ONLINE_ADAM, iters_num=20))
+    reset_launches()  # ---- this run of the path starts here ----
+    ex, wait, losses, finals, wall = online_session(
+        cfg, jobs[:2], jobs[2:3], params, mesh=mesh)
+    cards, total = device_launches(), dict(LAUNCHES)  # ---- ends here ----
+    rec = dict(phase="mesh", run="online_adam", tasks=3,
+               seconds_to_first_progress=wait, wall_s=wall,
+               job_steps_per_s=3 * cfg.iters_num / wall,
+               launches_per_card=per_card(mesh, cards, "online"))
+    emit(rec)
+    RECORD.setdefault("mesh", []).append(rec)
+    for tid, seen in losses.items():
+        vals = [loss for _p, loss in seen]
+        if tid not in finals or not (np.isfinite(vals).all()
+                                     and vals[-1] < vals[0]):
+            raise AssertionError(f"mesh online {tid}: {seen}")
+    return total
+
+
+def mesh_memory(mesh):
+    """memory_stats of a 4-lane 512 px Adam batch on the mesh: the
+    prediction per card beside each card's measured peak."""
+    from artstyletransfer_tpu_torch.config import Config
+    from artstyletransfer_tpu_torch.parallel.memory import memory_stats
+
+    cfg = Config(**dict(MESH_ADAM, conv_precision="default"))
+    stats = memory_stats(cfg, (512, 512), 4, mesh=mesh)
+    rec = dict(phase="mesh", run="memory_stats", batch=4,
+               lanes_per_card=stats["lanes_per_card"],
+               predicted_gb=gb(stats["predicted_bytes"]),
+               argument_gb=gb(stats["argument_bytes"]),
+               saved_activation_gb=gb(stats["saved_activation_bytes"]),
+               per_card=[dict(device=c["device"],
+                              peak_gb=gb(c["peak_bytes"]),
+                              allocated_before_gb=gb(
+                                  c["allocated_before_bytes"]))
+                         for c in stats["per_card"]])
+    emit(rec)
+    RECORD.setdefault("mesh", []).append(rec)
+    if any(not c["peak_gb"] > 0 for c in rec["per_card"]):
+        raise AssertionError(f"mesh memory: {rec}")
+
+
+def phase_mesh():
+    """Jobs placed over several cards (see the module docstring)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+    from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
+
+    smi = cards_smi()
+    count = torch.cuda.device_count()
+    if count >= 2:
+        mesh, what = jobs_mesh(), f"{count} cards"
+    else:
+        mesh = jobs_mesh(devices=["cuda:0", "cuda:0"])
+        what = "rehearsal, 1 card"
+    emit({"mesh": what})
+    emit({"phase": "mesh", "cards": count, "smi": smi,
+          "devices": [str(d) for d in mesh.devices]})
+    RECORD["mesh_cards"] = dict(cards=count, smi=smi, mesh=what)
+    params = init_vgg19_params(seed=0)
+    t0 = time.time()
+    paths = {"mesh_queue": mesh_queue(mesh, params),
+             "mesh_lbfgs_shrink": mesh_shrink(mesh, params),
+             "mesh_online": mesh_online(mesh, params)}
+    mesh_memory(mesh)
+    emit({"phase": "mesh", "wall_s": time.time() - t0})
+    for name, launches in paths.items():
+        check_launches(name, launches)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3296,6 +3587,7 @@ def main() -> int:
     paths.update(phase_large())
     paths.update(phase_lookahead())
     paths.update(phase_builders())
+    paths.update(phase_mesh())
     summary = kernel_summary(rows, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi

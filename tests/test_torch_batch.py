@@ -46,6 +46,7 @@ from artstyletransfer_tpu_torch.models.weights import params_from_jax
 from artstyletransfer_tpu_torch.ops.losses import level_loss
 from artstyletransfer_tpu_torch.ops.tv import lane_total_variation
 from artstyletransfer_tpu_torch.parallel import batch as pbatch
+from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
 
 STYLE = (0, 1, 2, 3, 5)
 WEIGHTS = (1e3, 4e5, 1e2)
@@ -69,6 +70,24 @@ def same_native(monkeypatch):
     if jax_native.available() != port_native.available():
         monkeypatch.setattr(jax_native, "available", lambda: False)
         monkeypatch.setattr(port_native, "available", lambda: False)
+
+
+@pytest.fixture
+def jax_native_loaded():
+    """The JAX package's native image library loaded in this process, if
+    it failed to load while another worker was writing it (see
+    tests/test_torch_graphs.py's load_jax_native): the stop_tol check
+    below parts on the numpy path's last bits."""
+    import os
+    import time
+
+    import artstyletransfer_tpu.native as jax_native
+
+    for _ in range(20):
+        if jax_native.available() or os.environ.get("ASTT_NO_NATIVE"):
+            return
+        time.sleep(0.5)
+        jax_native._tried = False  # its file may be whole now
 
 
 # ---- batched kernels' plain versions and per-lane losses ------------------
@@ -325,7 +344,8 @@ def test_pad_batch_to_drops_replicas(jobs_data, vgg_params):
     assert torch.is_tensor(quiet[0][2]) and quiet[0][2].shape == (4,)
 
 
-def test_stop_tol_shrinks_the_batch_like_jax(jobs_data, vgg_params, capsys):
+def test_stop_tol_shrinks_the_batch_like_jax(jobs_data, vgg_params, capsys,
+                                            jax_native_loaded):
     """Job 2's loss settles (relative change 0.004 from step 12 to 14, the
     others' changes >= 0.14), so at stop_tol 0.01 it latches and leaves the
     batch:
@@ -359,14 +379,21 @@ def test_batch_rejects_mixed_shapes_and_unported_options(jobs_data,
     with pytest.raises(ValueError, match="bucket_jobs"):
         pbatch.BatchedTransferJob([contents[0], bad], styles[:2], cfg,
                                   params=vgg_params, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):  # not a mesh
         pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
                                   params=vgg_params, device="cpu",
                                   mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="space sharding"):
         pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
                                   params=vgg_params, device="cpu",
                                   shard_space=True)
+    # a jobs mesh runs: one job padded to a lane per shard
+    mesh = jobs_mesh(devices=["cpu", "cpu"])
+    b = pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
+                                  params=vgg_params, mesh=mesh)
+    assert (b.batch, b.real_batch, len(b.shards)) == (2, 1, 2)
+    _d, imgs, losses = list(b.run())[-1]
+    assert imgs.shape[0] == 1 and np.isfinite(losses).all()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, jobs_data):

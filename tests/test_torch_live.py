@@ -33,6 +33,7 @@ from artstyletransfer_tpu_torch.engine import transfer as ttransfer
 from artstyletransfer_tpu_torch.engine import warmup as twarmup
 from artstyletransfer_tpu_torch.parallel import batch as pbatch
 from artstyletransfer_tpu_torch.parallel.live import LiveBatchRunner
+from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
 from artstyletransfer_tpu_torch.utils.image import unprepare_img
 
 SMALL = dict(levels_num=1, base_diameter=16)
@@ -295,8 +296,13 @@ def test_last_chunk_stops_at_the_budget(vgg_params, pair, monkeypatch):
 
 
 def test_runner_refuses_a_mesh_and_needs_cuda_by_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A value that is not a mesh raises; a jobs mesh is taken (the live
+    path on a mesh: tests/test_torch_mesh.py); CUDA is the default."""
+    with pytest.raises(TypeError, match="mesh"):
         LiveBatchRunner(Config(**ADAM), mesh=object(), device="cpu")
+    mesh = jobs_mesh(devices=["cpu", "cpu"])
+    r = LiveBatchRunner(Config(**ADAM), mesh=mesh, device="cpu")
+    assert r.mesh is mesh and r._capacity((32, 32, 3)) == 8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         LiveBatchRunner(Config(**ADAM))

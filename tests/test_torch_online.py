@@ -23,6 +23,7 @@ from artstyletransfer_tpu_torch.config import Config
 from artstyletransfer_tpu_torch.engine.transfer import ContentStylePair
 from artstyletransfer_tpu_torch.parallel import batch as pbatch
 from artstyletransfer_tpu_torch.parallel import live as live_mod
+from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
 from artstyletransfer_tpu_torch.runtime.online import OnlineBatchingExecutor
 
 LIVE = dict(levels_num=1, base_diameter=16, optimizer="adam")
@@ -203,8 +204,13 @@ def test_online_aclose_cancels_dispatcher():
 
 
 def test_online_refuses_a_mesh_and_needs_cuda_by_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A value that is not a mesh raises; a jobs mesh is taken (served on
+    it: tests/test_torch_mesh.py); CUDA is the default."""
+    with pytest.raises(TypeError, match="mesh"):
         OnlineBatchingExecutor(Config(), mesh=object(), device="cpu")
+    mesh = jobs_mesh(devices=["cpu", "cpu"])
+    ex = OnlineBatchingExecutor(Config(), mesh=mesh, device="cpu")
+    assert ex.mesh is mesh and ex.device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         OnlineBatchingExecutor(Config())

@@ -47,7 +47,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "kernels/conv_relu.py", "ops/conv_relu.py",
                    "engine/checkpoint.py", "parallel/live.py",
                    "runtime/online.py", "frontends/lab.py",
-                   "frontends/tlbot.py", "models/weights.py"):
+                   "frontends/tlbot.py", "models/weights.py",
+                   "parallel/mesh.py", "parallel/shards.py"):
         assert os.path.join(PORT, module) in files, module
     offenders = []
     for path in files:

@@ -27,6 +27,7 @@ from artstyletransfer_tpu_torch.engine.transfer import TransferJob
 from artstyletransfer_tpu_torch.parallel import memory as pmemory
 from artstyletransfer_tpu_torch.parallel.batch import BatchedTransferJob
 from artstyletransfer_tpu_torch.parallel.live import LiveBatchRunner
+from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -222,8 +223,14 @@ def test_memory_stats_argument_bytes(opt):
 
 
 def test_memory_stats_mesh_and_space_raise():
+    """A value that is not a mesh and space sharding raise; on a jobs mesh
+    the counts are one card's, for its share of the padded batch."""
     cfg = Config(**BASE)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         pmemory.memory_stats(cfg, (32, 40), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="space sharding"):
         pmemory.memory_stats(cfg, (32, 40), shard_space=True, device="cpu")
+    mesh = jobs_mesh(devices=["cpu", "cpu"])
+    on_mesh = pmemory.memory_stats(cfg, (32, 40), 3, mesh=mesh)
+    one_card = pmemory.memory_stats(cfg, (32, 40), 2, device="cpu")
+    assert on_mesh == dict(one_card, jobs_axis=2, lanes_per_card=2)

@@ -21,6 +21,7 @@ from artstyletransfer_tpu_torch.engine import graphs
 from artstyletransfer_tpu_torch.engine import transfer as ttransfer
 from artstyletransfer_tpu_torch.engine import warmup as twarmup
 from artstyletransfer_tpu_torch.parallel import batch as pbatch
+from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
 
 SMALL = dict(levels_num=1, base_diameter=16)
 PLANS = {
@@ -59,10 +60,15 @@ def test_online_warmup_plan_matches_jax(case, max_batch):
 
 
 def test_online_warmup_plan_one_card():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A value that is not a mesh raises; a jobs mesh plans the JAX
+    package's sizes (more cases: tests/test_torch_mesh.py)."""
+    with pytest.raises(TypeError, match="mesh"):
         twarmup.online_warmup_plan(Config(**SMALL), object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         twarmup.warmup_aspect_buckets(Config(**SMALL), mesh=object())
+    mesh = jobs_mesh(devices=["cpu", "cpu"])
+    assert twarmup.online_warmup_plan(
+        Config(**SMALL, optimizer="adam"), mesh) == ((2, 4, 8), mesh)
 
 
 def _spy(calls):
