@@ -4,6 +4,10 @@ The port of the JAX package's ``engine/checkpoint.py``: the whole state of
 a job or a batch — the image vector (NHWC flatten order), the optimizer
 state and the step counter — round-trips through one ``.npz`` file, so a
 run resumes exactly where it stopped (bit for bit on one device).
+A batch sharded over a mesh (its lanes over the jobs axis, its pixels over
+the space axis) writes the same file, its leaves gathered in lane and
+pixel order, and resumes from a file written without the mesh, and the
+reverse.
 
 The container and its keys are the JAX package's: ``magic``
 (``astt-checkpoint-v1``), ``step``, ``x``, ``fingerprint``, ``extra_json``,
@@ -37,7 +41,11 @@ _BY_NAME = {name: dt for dt, name in _EXT_DTYPES.items()}
 
 
 def _encode(v) -> tuple:
-    """-> (storable numpy array, real dtype name or None)."""
+    """-> (storable numpy array, real dtype name or None). A sharded
+    batch's leaf (parallel/shards.py Lanes, parallel/space.py SpaceLanes)
+    is gathered to the host first, in the unsharded layout."""
+    if not torch.is_tensor(v) and hasattr(v, "cpu"):
+        v = v.cpu()
     if not torch.is_tensor(v):
         return np.asarray(v), None
     v = v.detach()

@@ -27,7 +27,12 @@ full float32 (the port never allows TF32 for matmuls; the JAX package
 runs them at precision=HIGHEST), and the host reads (f, g.d) of all lanes
 at once, one read per round. The
 single-job forms (``LbfgsState``, ``init_state``, ``lbfgs_step``) are the
-B = 1 view of the lane forms.
+B = 1 view of the lane forms. The lane forms also take a space row's
+lanes (parallel/space.py ``SpaceLanes``): x, g, d and the s/y history
+are then row blocks on the row's devices, elementwise work runs per
+block, and every contraction over the pixels (``_dot``, ``_rows_dot``,
+``_hist_gram``) is per-block partials summed on the first device, where
+rho, the carried Grams and the scalars the host reads stay.
 
 Two state options of the JAX package (its TPU production settings):
 - carried Grams (``track_grams``, config ``lbfgs_grams='incremental'``):
@@ -73,7 +78,7 @@ def _eval_along(loss_grad: LossGradFn, x: torch.Tensor, t: torch.Tensor,
     along = getattr(loss_grad, "along", None)
     if along is not None:
         return along(x, t, d)
-    return loss_grad(torch.addcmul(x, t, d))
+    return loss_grad(x.addcmul(t, d))
 
 
 @dataclasses.dataclass
@@ -120,6 +125,49 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+def _dot(a, b):
+    """a . b of two (n,) rows: a plain tensor's torch.dot, or a space
+    row's per-block partials summed (parallel/space.py SpaceLanes)."""
+    return torch.dot(a, b) if isinstance(a, torch.Tensor) else a.dot(b)
+
+
+def _rows_dot(hist, v):
+    """(B, k): each of the k rows of a (B, k, n) history dotted with the
+    lane's (B, n) vector v, accumulated in float32."""
+    if isinstance(hist, torch.Tensor):
+        return _bmm_f32(hist, v.unsqueeze(2)).squeeze(2)
+    return hist.rows_dot(v, _bmm_f32)
+
+
+def _hist_gram(a, b):
+    """(B, k, k) = A Bᵀ of two (B, k, n) histories, in float32."""
+    if isinstance(a, torch.Tensor):
+        return _bmm_f32(a, b.transpose(1, 2))
+    return a.gram(b, _bmm_f32)
+
+
+def _combine(coef: torch.Tensor, hist):
+    """(B, n) = coef (B, k) times a (B, k, n) history, in float32."""
+    if isinstance(hist, torch.Tensor):
+        return _bmm_f32(coef.unsqueeze(1), hist).squeeze(1)
+    return hist.combine(coef, _bmm_f32)
+
+
+def _stack_rows(rows):
+    """torch.stack of (n,) rows, whichever layout they have."""
+    if isinstance(rows[0], torch.Tensor):
+        return torch.stack(rows)
+    return type(rows[0]).stack(rows)
+
+
+def _like(leaf, x):
+    """A leaf of x's pixel layout placed as x is: on x's device, or cut
+    into the blocks of a space row (a leaf already so placed stays)."""
+    if isinstance(x, torch.Tensor):
+        return leaf.to(x.device)
+    return x.place(leaf)
+
+
 def _two_loop_direction_loop(g: torch.Tensor, state: LbfgsState) -> torch.Tensor:
     """d = -H_k g via the textbook two-loop recursion (newest -> oldest,
     then oldest -> newest), on the device. bfloat16 rows are promoted
@@ -139,20 +187,20 @@ def _two_loop_direction_loop(g: torch.Tensor, state: LbfgsState) -> torch.Tensor
     alphas = {}
     for j in range(k):
         idx = (cnt - 1 - j) % m
-        a = state.rho[idx] * torch.dot(s_row(idx), q)
+        a = state.rho[idx] * _dot(s_row(idx), q)
         q = q - a * y_row(idx)
         alphas[idx] = a
     if cnt > 0:
         newest = (cnt - 1) % m
-        sy = torch.dot(s_row(newest), y_row(newest))
-        yy = torch.dot(y_row(newest), y_row(newest))
+        sy = _dot(s_row(newest), y_row(newest))
+        yy = _dot(y_row(newest), y_row(newest))
         gamma = sy / torch.clamp(yy, min=1e-20)
     else:
         gamma = 1.0
     r = gamma * q
     for j in range(k):
         idx = (cnt - k + j) % m
-        b = state.rho[idx] * torch.dot(y_row(idx), r)
+        b = state.rho[idx] * _dot(y_row(idx), r)
         r = r + s_row(idx) * (alphas[idx] - b)
     return -r
 
@@ -358,9 +406,15 @@ def lane_init_state(loss_grad: LossGradFn, x: torch.Tensor, history: int,
     b, n = x.shape
     grams = (torch.zeros((b, history, history), dtype=x.dtype,
                          device=x.device) if track_grams else None)
+
+    def hist():
+        if isinstance(x, torch.Tensor):
+            return torch.zeros((b, history, n), dtype=hdt, device=x.device)
+        return type(x)([torch.zeros((b, history, blk.shape[-1]), dtype=hdt,
+                                    device=blk.device) for blk in x.blocks])
+
     return LaneLbfgsState(
-        s_hist=torch.zeros((b, history, n), dtype=hdt, device=x.device),
-        y_hist=torch.zeros((b, history, n), dtype=hdt, device=x.device),
+        s_hist=hist(), y_hist=hist(),
         rho=torch.zeros((b, history), dtype=x.dtype, device=x.device),
         count=np.zeros((b,), np.int64), f=f.cpu().numpy().astype(_f32),
         g=g, n_evals=np.ones((b,), np.int64), n_iter=0,
@@ -403,10 +457,17 @@ def state_leaves(state: LaneLbfgsState) -> Dict[str, torch.Tensor]:
 
 
 def state_from_leaves(leaves: Dict[str, torch.Tensor],
-                      device) -> LaneLbfgsState:
-    """The lane state that state_leaves gave, on `device`."""
+                      x) -> LaneLbfgsState:
+    """The lane state that state_leaves gave, placed as the (B, n) lanes
+    x are: on x's device, or, for a space row's x, the pixel-axis leaves
+    (s_hist, y_hist, g) cut into its blocks and the rest on its first
+    device."""
     def dev(name):
-        return leaves[name].to(device) if name in leaves else None
+        if name not in leaves:
+            return None
+        if name in ("s_hist", "y_hist", "g"):
+            return _like(leaves[name], x)
+        return leaves[name].to(x.device)
 
     return LaneLbfgsState(
         s_hist=dev("s_hist"), y_hist=dev("y_hist"), rho=dev("rho"),
@@ -438,7 +499,8 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
     and the coefficients before the final combination, as in the JAX
     package's matrix form. 'loop': the textbook loop form per lane."""
     if impl == "loop":
-        return torch.stack([_two_loop_direction_loop(g[b], _lane_view(state, b))
+        return _stack_rows([_two_loop_direction_loop(g[b],
+                                                     _lane_view(state, b))
                             for b in range(g.shape[0])])
     if impl != "matrix":
         raise ValueError(f"unknown lbfgs direction impl {impl!r}; "
@@ -451,13 +513,13 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
     if state.sy_gram is not None:
         P, Q = state.sy_gram[:, :k, :k], state.yy_gram[:, :k, :k]
     else:
-        P = _bmm_f32(S, Y.transpose(1, 2))                     # S Yᵀ
-        Q = _bmm_f32(Y, Y.transpose(1, 2))                     # Y Yᵀ
-    g_h = g.to(S.dtype).unsqueeze(2)
+        P = _hist_gram(S, Y)                                   # S Yᵀ
+        Q = _hist_gram(Y, Y)                                   # Y Yᵀ
+    g_h = g.to(S.dtype)
     host = torch.cat([
         P.reshape(nb, k * k), Q.reshape(nb, k * k),
-        _bmm_f32(S, g_h).squeeze(2),                           # S g
-        _bmm_f32(Y, g_h).squeeze(2),                           # Y g
+        _rows_dot(S, g_h),                                     # S g
+        _rows_dot(Y, g_h),                                     # Y g
     ], dim=1).cpu().numpy()
     rho = state.rho.cpu().numpy()
     P = np.zeros((m, m), _f32)
@@ -477,10 +539,8 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
         coef_s[b], coef_y[b] = cs[:k], cy[:k]  # rows >= k are never valid
     dev, hdt = g.device, S.dtype
     r = (torch.from_numpy(gamma).to(dev).unsqueeze(1) * g
-         + _bmm_f32(torch.from_numpy(coef_s).to(dev, hdt).unsqueeze(1),
-                    S).squeeze(1)
-         + _bmm_f32(torch.from_numpy(coef_y).to(dev, hdt).unsqueeze(1),
-                    Y).squeeze(1))
+         + _combine(torch.from_numpy(coef_s).to(dev, hdt), S)
+         + _combine(torch.from_numpy(coef_y).to(dev, hdt), Y))
     return -r
 
 
@@ -556,11 +616,11 @@ def lane_lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor,
 
     t = np.zeros((nb,), _f32)
     f_new = f0.copy()
-    g_rows = list(g0)
+    g_rows = [g0[b] for b in range(nb)]
     ls_evals = np.zeros((nb,), np.int64)
     for b, (tb, fb, gb, nb_evals) in found.items():
         t[b], f_new[b], g_rows[b], ls_evals[b] = tb, fb, gb, nb_evals
-    g_new = torch.stack(g_rows)
+    g_new = _stack_rows(g_rows)
     s = torch.from_numpy(t).to(x.device).unsqueeze(1) * d
     x_new = x + s
     y = g_new - g0
@@ -614,9 +674,9 @@ def _update_grams(state: LaneLbfgsState, lane_t: torch.Tensor,
     beyond them are zero) and only the storing lanes' rows and columns are
     written."""
     S, Y = state.s_hist[:, :k], state.y_hist[:, :k]
-    p_row = _bmm_f32(Y, s_q.unsqueeze(2)).squeeze(2)[lane_t]   # y_j · s_q
-    q_row = _bmm_f32(Y, y_q.unsqueeze(2)).squeeze(2)[lane_t]   # y_j · y_q
-    p_col = _bmm_f32(S, y_q.unsqueeze(2)).squeeze(2)[lane_t]   # s_j · y_q
+    p_row = _rows_dot(Y, s_q)[lane_t]                          # y_j · s_q
+    q_row = _rows_dot(Y, y_q)[lane_t]                          # y_j · y_q
+    p_col = _rows_dot(S, y_q)[lane_t]                          # s_j · y_q
     P, Q = state.sy_gram, state.yy_gram
     P[lane_t, idx_t, :k] = p_row
     P[lane_t, :k, idx_t] = p_col

@@ -19,7 +19,10 @@ The loss graph, the targets and Adam take a leading lane axis as they
 are: B jobs of one shape stack their images as (B, n) and their targets
 as (B, ...), every loss is a (B,) vector, and a lane's gradient is that of
 its own loss, since VGG couples no lanes. A single job is one lane, and
-parallel/batch.py builds the batched job on the same pieces.
+parallel/batch.py builds the batched job on the same pieces. A space
+row's lanes (parallel/space.py: each lane's rows over several devices)
+run the same levels over row blocks (``_make_space_pyramid_loss``), and
+Adam and L-BFGS take their SpaceLanes as they are.
 
 On CUDA every loss-and-gradient evaluation replays a CUDA graph captured
 once per (bucket shape, lanes, config, weights) and kept in the bounded
@@ -60,11 +63,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config, held_precision, precision_gate, resolve_device
-from ..models.vgg19 import CONTENT_INDEX, STYLE_INDICES, extract_features
+from ..models.vgg19 import (CONTENT_INDEX, STYLE_INDICES, extract_features,
+                            extract_features_blocks)
 from ..models.weights import shared_params
 from ..ops.gram import gram_matrix
-from ..ops.losses import level_loss
-from ..ops.resize import downscale2x
+from ..ops.losses import level_loss, space_level_loss
+from ..ops.blocks import fan_out
+from ..ops.resize import downscale2x, downscale2x_blocks
 from ..utils.cache import BoundedCache
 from ..utils.image import prepare_img, unprepare_img
 from . import checkpoint as ckpt
@@ -103,27 +108,35 @@ def _raise_nonfinite_batch(bad, done, real_batch, cfg: Config) -> None:
 LBFGS_HISTORY_BUDGET_GB = 8.0
 
 
-def lbfgs_history_gb(cfg: Config, level_shapes, batch: int = 1) -> float:
-    """Device memory the L-BFGS s/y history buffers of `batch` jobs need,
-    in GB; bfloat16 storage (cfg.lbfgs_state_dtype) halves it."""
+def lbfgs_history_gb(cfg: Config, level_shapes, batch: int = 1,
+                     space: int = 1) -> float:
+    """Device memory the L-BFGS s/y history buffers of `batch` jobs need
+    on each card, in GB: the history rows shard with the pixels over a
+    space row of `space` cards (parallel/space.py); bfloat16 storage
+    (cfg.lbfgs_state_dtype) halves it."""
     n_pixels = int(np.prod(level_shapes[0]))
     bytes_per = 2 if cfg.lbfgs_state_dtype == "bfloat16" else 4
-    return 2 * cfg.lbfgs_history * n_pixels * bytes_per * batch / 1e9
+    return (2 * cfg.lbfgs_history * n_pixels * bytes_per * batch
+            / space / 1e9)
 
 
-def warn_lbfgs_hbm(cfg: Config, level_shapes, batch: int = 1) -> bool:
-    """Print a stderr warning when the (batched) L-BFGS history exceeds
-    LBFGS_HISTORY_BUDGET_GB; returns whether it fired. One formula and
-    threshold for the single-job and batched sites."""
-    hist_gb = lbfgs_history_gb(cfg, level_shapes, batch)
+def warn_lbfgs_hbm(cfg: Config, level_shapes, batch: int = 1,
+                   space: int = 1) -> bool:
+    """Print a stderr warning when the (batched, space-sharded) L-BFGS
+    history of a card exceeds LBFGS_HISTORY_BUDGET_GB; returns whether it
+    fired. One formula and threshold for the single-job and batched
+    sites."""
+    hist_gb = lbfgs_history_gb(cfg, level_shapes, batch, space)
     if hist_gb <= LBFGS_HISTORY_BUDGET_GB:
         return False
     jobs = f"{batch} jobs x " if batch > 1 else ""
+    shard = f" a card over {space} cards" if space > 1 else ""
     dt_hint = ("" if cfg.lbfgs_state_dtype == "bfloat16"
                else "--lbfgs-state-dtype bfloat16 (halves it), ")
     print(f"warning: L-BFGS history buffers need ~{hist_gb:.1f} GB of device "
-          f"memory ({jobs}history={cfg.lbfgs_history}); consider "
-          f"{dt_hint}--lbfgs-history 10, or a smaller batch/resolution",
+          f"memory{shard} ({jobs}history={cfg.lbfgs_history}); consider "
+          f"{dt_hint}--lbfgs-history 10, sharding the pixels over more "
+          f"cards (queue_cli --space N), or a smaller batch/resolution",
           file=sys.stderr)
     return True
 
@@ -218,6 +231,62 @@ def _make_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
     return loss_fn
 
 
+def space_level_pass(params, targets, lvl: int, blocks, cfg: Config):
+    """level_pass over the row blocks of one level's (B, h, w, 3) image,
+    block k on the space row's k-th device with params[k] (its copy of
+    the weights): VGG19 with a halo at every conv, and the level's losses
+    summed over the blocks on the first device (ops/losses.py
+    space_level_loss)."""
+    blocks, tv_blocks = fan_out(blocks, 2)
+    feats = extract_features_blocks(params, blocks, cfg.compute_dtype,
+                                    use_relu=cfg.use_relu)
+    t_content, t_grams = targets[lvl]
+    return space_level_loss(feats, t_content, t_grams, tv_blocks,
+                            cfg.content_weight, cfg.style_weight,
+                            cfg.tv_weight, CONTENT_INDEX, STYLE_INDICES,
+                            use_pallas=cfg.use_pallas,
+                            fused_style_bwd=cfg.fused_style_bwd)
+
+
+def _make_space_pyramid_loss(level_shapes: List[Tuple[int, int, int, int]],
+                             cfg: Config):
+    """_make_pyramid_loss over a space row (parallel/space.py): x is a
+    SpaceLanes of the (B, n) images, block k holding rows [k h / S,
+    (k+1) h / S) of the top level, and params the per-device weights.
+    Each level's blocks come from the level above by the block form of
+    the bicubic downscale; the totals and the metrics are on the row's
+    first device. targets: per level (the flattened content tap as a
+    SpaceLanes of the same rows, the Grams on the first device)."""
+    lane_shape = tuple(level_shapes[0][1:])
+
+    def loss_fn(params, targets, x):
+        n = len(x.blocks)
+        blocks = [b.reshape((-1, lane_shape[0] // n) + lane_shape[1:])
+                  for b in x.blocks]
+        total = 0.0
+        metrics = []
+        for lvl in range(len(level_shapes)):
+            if lvl > 0:
+                blocks = downscale2x_blocks(below)
+            if lvl + 1 < len(level_shapes):
+                blocks, below = fan_out(blocks, 2)
+
+            def one_level(*blocks, lvl=lvl):
+                return space_level_pass(params, targets, lvl, list(blocks),
+                                        cfg)
+
+            if cfg.remat_levels and torch.is_grad_enabled():
+                ll = checkpoint(one_level, *blocks, use_reentrant=False,
+                                preserve_rng_state=False)
+            else:
+                ll = one_level(*blocks)
+            total = total + ll.total
+            metrics.append(ll)
+        return total, metrics
+
+    return loss_fn
+
+
 @torch.no_grad()
 def _compute_targets(params, content_levels_pre: List[torch.Tensor],
                      style_levels_pre: List[torch.Tensor], cfg: Config):
@@ -251,7 +320,17 @@ def _eval_body(loss_fn, params):
     """body(targets, x) -> ((B,) total losses, (B, n) d total / d x), both
     detached: one eager evaluation, or what a graph captures."""
 
+    # imported here: parallel/ imports this module
+    from ..parallel.space import SpaceLanes
+
     def body(targets, x):
+        if isinstance(x, SpaceLanes):
+            # one graph over the row's devices; autograd's device threads
+            # run each card's part of the backward
+            xs = [b.detach().requires_grad_(True) for b in x.blocks]
+            total, _ = loss_fn(params, targets, SpaceLanes(xs))
+            return total.detach(), SpaceLanes(
+                torch.autograd.grad(total.sum(), xs))
         x = x.detach().requires_grad_(True)
         total, _ = loss_fn(params, targets, x)
         (g,) = torch.autograd.grad(total.sum(), x)
@@ -329,7 +408,7 @@ class LossGrad:
 
     def along(self, x: torch.Tensor, t: torch.Tensor, d: torch.Tensor):
         if not self._graphed:
-            return self(torch.addcmul(x, t, d))
+            return self(x.addcmul(t, d))
         return self._entry(x)(self._owner, self._targets, x, t, d)
 
 
@@ -375,6 +454,11 @@ def _per_lane(values, fn, device):
                         device=device).unsqueeze(1)
 
 
+def _zeros_like(x):
+    """Zeros of x's shape and layout (a plain tensor or a SpaceLanes)."""
+    return torch.zeros_like(x) if isinstance(x, torch.Tensor) else x.zeros_like()
+
+
 class _Adam:
     """optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) then x -= lr * update
     (torch Adam's defaults, reference neural_style_transfer.py:134).
@@ -392,12 +476,12 @@ class _Adam:
         self.loss_grad = loss_grad
         self.cfg = cfg
         if leaves is None:
-            self.mu = torch.zeros_like(x)
-            self.nu = torch.zeros_like(x)
+            self.mu = _zeros_like(x)
+            self.nu = _zeros_like(x)
             self.count = 0
         else:
-            self.mu = leaves["mu"].to(x.device)
-            self.nu = leaves["nu"].to(x.device)
+            self.mu = lbfgs_mod._like(leaves["mu"], x)
+            self.nu = lbfgs_mod._like(leaves["nu"], x)
             self.count = _host_steps(leaves["count"])
 
     @staticmethod
@@ -424,7 +508,7 @@ class _Adam:
         bc2 = _per_lane(self.count, lambda c: np.float32(1.0)
                         - np.float32(b2) ** np.float32(c), x.device)
         lr = _per_lane(step, lambda s: _lr_at(self.cfg, s), x.device)
-        update = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + self.eps)
+        update = (self.mu / bc1) / ((self.nu / bc2).sqrt() + self.eps)
         return x - lr * update, f
 
     def select(self, lanes) -> None:
@@ -454,7 +538,7 @@ class _Lbfgs:
                 track_grams=self._track_grams(cfg),
                 state_dtype=cfg.lbfgs_state_dtype)
         else:
-            self.state = lbfgs_mod.state_from_leaves(leaves, x.device)
+            self.state = lbfgs_mod.state_from_leaves(leaves, x)
 
     @staticmethod
     def _track_grams(cfg: Config) -> bool:
@@ -503,6 +587,30 @@ def async_steps(cfg: Config) -> bool:
     return cfg.pipeline_streaming and cfg.optimizer == "adam"
 
 
+def _pieces(t):
+    """(the device tensors t is made of, a function that joins their host
+    copies into t's host tensor): a tensor is itself, a sharded batch's
+    Lanes its parts in lane order, a space row's SpaceLanes its blocks in
+    pixel order (the two nest)."""
+    # imported here: parallel/ imports this module
+    from ..parallel.space import SpaceLanes
+
+    if isinstance(t, torch.Tensor):
+        return [t], lambda host: host[0]
+    parts, dim = ((t.blocks, -1) if isinstance(t, SpaceLanes)
+                  else (t.parts, 0))
+    subs = [_pieces(p) for p in parts]
+
+    def join(host):
+        out, i = [], 0
+        for got, sub_join in subs:
+            out.append(sub_join(host[i:i + len(got)]))
+            i += len(got)
+        return out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+
+    return [p for got, _j in subs for p in got], join
+
+
 class HostCopies:
     """Lookahead streaming (cfg.pipeline_streaming): each chunk's results
     on their way to the host while the next chunk runs.
@@ -536,15 +644,14 @@ class HostCopies:
             yield materialize(done, x, f)
 
     def copy(self, *tensors):
-        groups = [list(getattr(t, "parts", [t])) for t in tensors]
-        flat = [p for g in groups for p in g]
+        pieces = [_pieces(t) for t in tensors]
+        flat = [p for got, _join in pieces for p in got]
 
         def regroup(host):
             out, i = [], 0
-            for g in groups:
-                out.append(host[i] if len(g) == 1
-                           else torch.cat(host[i:i + len(g)]))
-                i += len(g)
+            for got, join in pieces:
+                out.append(join(host[i:i + len(got)]))
+                i += len(got)
             return out
 
         if not flat[0].is_cuda:

@@ -22,8 +22,10 @@ Every engine/config flag of the port's CLI is accepted, plus --device
 not given). --mesh auto (default) places each batch's jobs over every
 visible card (parallel/mesh.py default_serving_mesh; a no-op on one card
 and on the CPU, and the ASTT_SERVING_MESH=none environment variable
-turns it off); --mesh none runs on one card. --space > 1 (one job's
-pixels over several cards) is not ported and exits with an error.
+turns it off); --mesh none runs on one card. --space N (N > 1, with
+--mesh auto) splits each job's rows over N cards (parallel/space.py):
+the mesh is default_serving_mesh(N), and it exits with an error where
+there is none (fewer than 2 cards, the CPU, or --mesh none).
 --checkpoint-dir [--checkpoint-every N] [--resume] keeps
 one checkpoint per group and resumes the same queue from them. Failed
 jobs are reported on stderr and in the exit code;
@@ -71,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu); 'none' stays on one card. The "
                         "ASTT_SERVING_MESH env var can force 'none'.")
     p.add_argument("--space", type=int, default=1, metavar="N",
-                   help="shard each job's pixels over N cards (not ported: "
-                        "only 1)")
+                   help="shard each job's pixels over N cards (HBM relief "
+                        "for 2K/4-level jobs); needs --mesh auto and a "
+                        "multiple of N cards")
     p.add_argument("--canonicalize-styles", action="store_true",
                    help="square styles to the base diameter so mixed "
                         "aspect ratios share one batch")
@@ -155,9 +158,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         parser.error("--resume requires --checkpoint-dir")
-    if args.space > 1:
-        parser.error("--space > 1: sharding one job over several cards is "
-                     "not ported")
+    if args.space > 1 and args.mesh != "auto":
+        parser.error("--space > 1 requires --mesh auto")
     resolve_device(args.device)  # no card and no --device cpu: fail first
     cfg = config_from_args(args)
 
@@ -173,7 +175,12 @@ def main(argv=None) -> int:
     from ..parallel.mesh import serving_mesh
     from ..utils.metrics import MetricsLogger
 
-    mesh = serving_mesh(args.device) if args.mesh == "auto" else None
+    mesh = (serving_mesh(args.device, args.space) if args.mesh == "auto"
+            else None)
+    if args.space > 1 and mesh is None:
+        parser.error(f"--space {args.space}: no mesh to shard over (it "
+                     f"needs {args.space} or more visible cards; none on "
+                     f"the CPU or with ASTT_SERVING_MESH=none)")
     if not args.quiet:
         where = (f"mesh={mesh.shape} over {mesh.size} cards"
                  if mesh is not None else f"device={args.device}")
@@ -196,7 +203,9 @@ def main(argv=None) -> int:
             stream_images=False,  # final images only — no per-chunk copy
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every, resume=args.resume,
-            retries=args.retries, mesh=mesh, device=args.device)
+            retries=args.retries, mesh=mesh,
+            shard_space=args.space > 1 and mesh is not None,
+            device=args.device)
         failures = {**load_failures, **failures}
 
         for tid, img in results.items():

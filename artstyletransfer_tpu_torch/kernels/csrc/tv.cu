@@ -14,6 +14,20 @@
 // sy(i, j) = sign(y[i, j] - y[i + 1, j]) (0 on the last row), sign(0) = 0,
 // a_x = g 2 mean_x / (h (w-1) c) and a_y = g 2 mean_y / ((h-1) w c).
 //
+// A seam (space sharding: one image's rows over several devices, each
+// launch one block of rows). Both kernels take h_total, the image's
+// height for the denominators in place of h, and an optional halo row:
+// the next block's first row, (lanes, W). The forward then adds
+// sum |y[h-1, j] - halo[j]| to the vertical sum and returns each lane's
+// partial means (its sums over h_total's denominators), which add up over
+// the blocks to the image's means (tv is then the square of a partial and
+// not used). The backward, given the image's means, writes the block's
+// gradient, with the seam pair's part on its last row, and the halo
+// row's gradient -a_y sign(y[h-1, j] - halo[j]), which belongs to the
+// next block's first row. The block's first row has no pair above: that
+// pair is the previous block's seam. Without a halo and with h_total = h
+// both kernels are the whole-image kernels, bit for bit.
+//
 // Bound on the H100: memory. The forward reads 4 bytes per element, the
 // backward reads 4 and writes 4; a few operations per element.
 //
@@ -153,6 +167,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // double, in thread 0 only
 template <int VEC, int C>
 __device__ __forceinline__ void fwd_block_sums(const float* __restrict__ img,
+                                               const float* __restrict__ halo,
                                                int h, int W, int rows,
                                                double& tx, double& ty) {
     constexpr int kHalo = (C + VEC - 1) / VEC;   // right halo lanes
@@ -166,6 +181,7 @@ __device__ __forceinline__ void fwd_block_sums(const float* __restrict__ img,
     const int stride = blockDim.x * VEC;
     const int nseg = (W + kSegCols - 1) / kSegCols;
     const int nunits = nseg * ((h + rows - 1) / rows);
+    const int h_rows = h + (halo != nullptr);   // rows read: + the halo row
 
     // one running sum per element of the lane: independent add chains
     float sx[VEC] = {}, sy[VEC] = {};
@@ -180,12 +196,15 @@ __device__ __forceinline__ void fwd_block_sums(const float* __restrict__ img,
         for (int k = 0; k < VEC; ++k) right[k] = mine && j0 + k + C < W;
         const int r0 = strip * rows;
         const int owned = min(rows, h - r0);            // rows [r0, r0 + owned)
-        const int nrows = min(owned + 1, h - r0);       // + the row below
-        const float* src = img + static_cast<int64_t>(r0) * W + (in ? j0 : 0);
+        const int nrows = min(owned + 1, h_rows - r0);  // + the row below
+        const int col = in ? j0 : 0;
+        // row r of the image, or the halo row at r == h
+        auto row = [&](int r) {
+            return (r < h ? img + static_cast<int64_t>(r) * W : halo) + col;
+        };
 #pragma unroll
         for (int s = 0; s < kRing; ++s) {
-            if (s < nrows) copy_async<VEC>(first + s * stride, src, in);
-            src += W;
+            if (s < nrows) copy_async<VEC>(first + s * stride, row(r0 + s), in);
             commit();
         }
         float prev[VEC];
@@ -212,8 +231,7 @@ __device__ __forceinline__ void fwd_block_sums(const float* __restrict__ img,
 #pragma unroll
                 for (int k = 0; k < VEC; ++k) prev[k] = v[k];
                 // the slot is refilled only after its values were used
-                if (t + kRing < nrows) copy_async<VEC>(slot, src, in);
-                src += W;
+                if (t + kRing < nrows) copy_async<VEC>(slot, row(r0 + t + kRing), in);
                 commit();
             }
         }
@@ -243,19 +261,21 @@ __device__ __forceinline__ void fwd_block_sums(const float* __restrict__ img,
 }
 
 // grid (cluster, lanes), one cluster per lane; out: (lanes, 5) =
-// (tv, mean_x, mean_y, sum_x, sum_y)
+// (tv, mean_x, mean_y, sum_x, sum_y); halo: (lanes, W) or null
 template <int VEC, int C>
 __global__ void __launch_bounds__(kMaxFwdThreads, 1)
-tv_fwd_kernel(const float* __restrict__ y, int h, int W, int rows,
-              float* __restrict__ out) {
+tv_fwd_kernel(const float* __restrict__ y, const float* __restrict__ halo,
+              int h, int h_total, int W, int rows, float* __restrict__ out) {
     __shared__ double parts[kMaxCluster][2];   // rank 0's: every block's pair
     cg::cluster_group cluster = cg::this_cluster();
     // a block may store into another's shared memory only once that block
     // runs: arrive now, wait before the store
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
     double tx, ty;
-    fwd_block_sums<VEC, C>(y + static_cast<int64_t>(blockIdx.y) * h * W, h, W,
-                           rows, tx, ty);
+    fwd_block_sums<VEC, C>(y + static_cast<int64_t>(blockIdx.y) * h * W,
+                           halo ? halo + static_cast<int64_t>(blockIdx.y) * W
+                                : nullptr,
+                           h, W, rows, tx, ty);
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     if (threadIdx.x == 0) {
         double* p = cluster.map_shared_rank(&parts[cluster.block_rank()][0], 0);
@@ -270,8 +290,8 @@ tv_fwd_kernel(const float* __restrict__ y, int h, int W, int rows,
             ty += parts[r][1];
         }
         const int w = W / C;
-        const double mx = tx / (static_cast<double>(h) * (w - 1) * C);
-        const double my = ty / (static_cast<double>(h - 1) * w * C);
+        const double mx = tx / (static_cast<double>(h_total) * (w - 1) * C);
+        const double my = ty / (static_cast<double>(h_total - 1) * w * C);
         float* o = out + 5 * static_cast<int64_t>(blockIdx.y);
         o[0] = static_cast<float>(mx * mx + my * my);
         o[1] = static_cast<float>(mx);
@@ -308,13 +328,15 @@ __device__ __forceinline__ void bwd_row(const float (&up)[VEC],
 }
 
 // grid (blocks, lanes); grad: (lanes, h, W). g[b * g_stride] is lane b's
-// cotangent, means[b * m_stride + {0, 1}] its (mean_x, mean_y).
+// cotangent, means[b * m_stride + {0, 1}] its (mean_x, mean_y). halo:
+// (lanes, W) or null; halo_grad: (lanes, W), written where halo is given.
 template <int VEC, int C>
 __global__ void __launch_bounds__(kMaxBwdThreads)
 tv_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
               int64_t g_stride, const float* __restrict__ means,
-              int64_t m_stride, int h, int W, int rows,
-              float* __restrict__ grad) {
+              int64_t m_stride, const float* __restrict__ halo, int h,
+              int h_total, int W, int rows, float* __restrict__ grad,
+              float* __restrict__ halo_grad) {
     constexpr int kHalo = (C + VEC - 1) / VEC;   // on each side
     constexpr int kSegCols = (32 - 2 * kHalo) * VEC;
     extern __shared__ __align__(16) float ring[];
@@ -323,6 +345,7 @@ tv_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
     const int nwarps = blockDim.x >> 5;
     const int64_t b = blockIdx.y;
     const float* img = y + b * h * W;
+    const float* hrow = halo ? halo + b * W : nullptr;
     float* dst = grad + b * h * W;
     float* slots = ring + (warp * kRing * 32 + lane) * VEC;   // slot s: + s * 32 VEC
     constexpr int stride = 32 * VEC;
@@ -330,11 +353,12 @@ tv_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
     const int w = W / C;
     const float gb = g[b * g_stride];
     const float ax = gb * (2.f * means[b * m_stride]) /
-                     (static_cast<float>(h) * (w - 1) * C);
+                     (static_cast<float>(h_total) * (w - 1) * C);
     const float ay = gb * (2.f * means[b * m_stride + 1]) /
-                     (static_cast<float>(h - 1) * w * C);
+                     (static_cast<float>(h_total - 1) * w * C);
     const int nseg = (W + kSegCols - 1) / kSegCols;
     const int nunits = nseg * ((h + rows - 1) / rows);
+    const int h_rows = h + (halo != nullptr);   // rows read: + the halo row
 
     for (int u = warp * gridDim.x + blockIdx.x; u < nunits;
          u += gridDim.x * nwarps) {
@@ -351,13 +375,15 @@ tv_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
         const int r0 = strip * rows;
         const int r1 = min(r0 + rows, h);        // rows [r0, r1) written
         const int ra = max(r0 - 1, 0);           // rows [ra, rb] read
-        const int rb = min(r1, h - 1);
+        const int rb = min(r1, h_rows - 1);      // row h: the halo row
         const int nrows = rb - ra + 1;
-        const float* src = img + static_cast<int64_t>(ra) * W + (in ? j0 : 0);
+        const int col = in ? j0 : 0;
+        auto row = [&](int r) {
+            return (r < h ? img + static_cast<int64_t>(r) * W : hrow) + col;
+        };
 #pragma unroll
         for (int s = 0; s < kRing; ++s) {
-            if (s < nrows)
-                copy_async<VEC>(slots + s * stride, src + static_cast<int64_t>(s) * W, in);
+            if (s < nrows) copy_async<VEC>(slots + s * stride, row(ra + s), in);
             commit();
         }
         float up[VEC], cur[VEC];
@@ -372,13 +398,18 @@ tv_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
             if (rr > r0)                         // uniform: row rr - 1 is whole
                 bwd_row<VEC, C>(up, cur, v, right, left, mine, rr - 1 > 0, true,
                                 ax, ay, dst + static_cast<int64_t>(rr - 1) * W + j0);
+            if (rr == h && mine) {               // the halo row: the seam pair's part
+                float o[VEC];
+#pragma unroll
+                for (int k = 0; k < VEC; ++k) o[k] = -ay * sgn(cur[k] - v[k]);
+                store_vec<VEC>(halo_grad + b * W + j0, o);
+            }
 #pragma unroll
             for (int k = 0; k < VEC; ++k) {
                 up[k] = cur[k];
                 cur[k] = v[k];
             }
-            if (t + kRing < nrows)
-                copy_async<VEC>(slot, src + static_cast<int64_t>(t + kRing) * W, in);
+            if (t + kRing < nrows) copy_async<VEC>(slot, row(ra + t + kRing), in);
             commit();
         }
         if (rb == r1 - 1) {   // the strip ends at the last row: no row below
@@ -428,14 +459,16 @@ struct Fwd {
         cfg->numAttrs = 1;
     }
 
-    static int launch(const float* y, int lanes, int h, int W, int cluster,
-                      int warps, int rows, float* out, cudaStream_t s, int dev) {
+    static int launch(const float* y, const float* halo, int lanes, int h,
+                      int h_total, int W, int cluster, int warps, int rows,
+                      float* out, cudaStream_t s, int dev) {
         cudaError_t err = prepare(dev);
         if (err == cudaSuccess) {
             cudaLaunchConfig_t cfg;
             cudaLaunchAttribute attr;
             config(lanes, cluster, warps, s, &cfg, &attr);
-            err = cudaLaunchKernelEx(&cfg, tv_fwd_kernel<VEC, C>, y, h, W, rows, out);
+            err = cudaLaunchKernelEx(&cfg, tv_fwd_kernel<VEC, C>, y, halo, h,
+                                     h_total, W, rows, out);
         }
         return static_cast<int>(finish(err));
     }
@@ -455,8 +488,9 @@ struct Fwd {
 template <int VEC, int C>
 struct Bwd {
     static int launch(const float* y, const float* g, int64_t g_stride,
-                      const float* means, int64_t m_stride, int lanes, int h,
-                      int W, int blocks, int warps, int rows, float* grad,
+                      const float* means, int64_t m_stride, const float* halo,
+                      int lanes, int h, int h_total, int W, int blocks,
+                      int warps, int rows, float* grad, float* halo_grad,
                       cudaStream_t s, int dev) {
         static bool done[kMaxDevices] = {};   // rings above 48 KB, once
         cudaError_t err = cudaSuccess;
@@ -469,7 +503,8 @@ struct Bwd {
         if (err == cudaSuccess)
             tv_bwd_kernel<VEC, C><<<dim3(blocks, lanes), 32 * warps,
                                     ring_bytes(32 * warps, VEC), s>>>(
-                y, g, g_stride, means, m_stride, h, W, rows, grad);
+                y, g, g_stride, means, m_stride, halo, h, h_total, W, rows,
+                grad, halo_grad);
         return static_cast<int>(finish(err));
     }
 };
@@ -510,22 +545,24 @@ int on_device(int dev, F f) {
 extern "C" {
 
 // y: (lanes, h, w, c) float32 contiguous, 1 <= c <= 4, W = w c,
-// W % vec == 0 and y aligned to 4 vec bytes (vec 4, 2 or 1); `cluster`
-// (1..16) blocks of `warps` (1..32) warps per lane; `rows` per strip.
-// out: (lanes, 5) float32 = (tv, mean_x, mean_y, sum_x, sum_y) of each
-// lane. Launches on `stream` of device `dev`. Returns the cudaError_t of
-// the launch (0 = success).
-int astt_tv_fwd(const float* y, int lanes, int h, int w, int c, int vec,
-                int cluster, int warps, int rows, float* out, int dev,
-                void* stream) {
+// W % vec == 0 and y aligned to 4 vec bytes (vec 4, 2 or 1); halo: null,
+// or (lanes, W) float32 contiguous and aligned as y (a seam: see the top
+// of this file); h_total: the image's height for the means (h for a whole
+// image); `cluster` (1..16) blocks of `warps` (1..32) warps per lane;
+// `rows` per strip. out: (lanes, 5) float32 = (tv, mean_x, mean_y,
+// sum_x, sum_y) of each lane. Launches on `stream` of device `dev`.
+// Returns the cudaError_t of the launch (0 = success).
+int astt_tv_fwd(const float* y, const float* halo, int lanes, int h,
+                int h_total, int w, int c, int vec, int cluster, int warps,
+                int rows, float* out, int dev, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int W = w * c;
     if (cluster < 1 || cluster > kMaxCluster || warps < 1 ||
-        warps > kMaxFwdThreads / 32)
+        warps > kMaxFwdThreads / 32 || h_total < 2)
         return static_cast<int>(cudaErrorInvalidValue);
     return on_device(dev, [&]() -> int {
-        ASTT_TV_DISPATCH(Fwd, launch, y, lanes, h, W, cluster, warps, rows,
-                         out, s, dev);
+        ASTT_TV_DISPATCH(Fwd, launch, y, halo, lanes, h, h_total, W, cluster,
+                         warps, rows, out, s, dev);
     });
 }
 
@@ -538,21 +575,25 @@ int astt_tv_fwd_clusters(int vec, int c, int cluster, int warps, int dev,
     });
 }
 
-// y as for astt_tv_fwd; g: lane b's cotangent at g[b * g_stride]; means:
-// lane b's (mean_x, mean_y) at means[b * m_stride + {0, 1}]; grid (blocks,
-// lanes) of `warps` (1..16) warps, `rows` per strip. grad: (lanes, h, w, c)
-// float32, aligned as y.
+// y, halo and h_total as for astt_tv_fwd; g: lane b's cotangent at
+// g[b * g_stride]; means: lane b's (mean_x, mean_y) of the whole image at
+// means[b * m_stride + {0, 1}]; grid (blocks, lanes) of `warps` (1..16)
+// warps, `rows` per strip. grad: (lanes, h, w, c) float32, aligned as y;
+// halo_grad: (lanes, W) float32 aligned as y, written when halo is given.
 int astt_tv_bwd(const float* y, const float* g, int64_t g_stride,
-                const float* means, int64_t m_stride, int lanes, int h, int w,
-                int c, int vec, int blocks, int warps, int rows, float* grad,
-                int dev, void* stream) {
+                const float* means, int64_t m_stride, const float* halo,
+                int lanes, int h, int h_total, int w, int c, int vec,
+                int blocks, int warps, int rows, float* grad,
+                float* halo_grad, int dev, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int W = w * c;
-    if (warps < 1 || warps > kMaxBwdThreads / 32)
+    if (warps < 1 || warps > kMaxBwdThreads / 32 || h_total < 2 ||
+        (halo != nullptr && halo_grad == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     return on_device(dev, [&]() -> int {
-        ASTT_TV_DISPATCH(Bwd, launch, y, g, g_stride, means, m_stride, lanes,
-                         h, W, blocks, warps, rows, grad, s, dev);
+        ASTT_TV_DISPATCH(Bwd, launch, y, g, g_stride, means, m_stride, halo,
+                         lanes, h, h_total, W, blocks, warps, rows, grad,
+                         halo_grad, s, dev);
     });
 }
 

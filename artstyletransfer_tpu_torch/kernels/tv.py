@@ -13,6 +13,17 @@ versions, forward and backward, per lane of an NHWC float32 batch.
   pallas_kernels.py:222, which is XLA in the JAX package): one launch for
   every lane. Bound: the images' bytes read once and written once.
 
+A seam (parallel/space.py: one image's rows over several devices, each
+call one block of rows): both take h_total, the image's height for the
+means' denominators, and an optional halo, the next block's first row
+(B, w*c). tv(y, h_total, halo) returns each lane's partial means, the
+vertical sum including the pair (last row, halo), which add up over the
+blocks to the image's means; tv_bwd(y, g, means, h_total, halo), given
+the image's means, returns the block's gradient (the seam pair's part on
+its last row) and the halo row's gradient, which goes back to the next
+block's first row. Without them both are the whole-image functions, bit
+for bit.
+
 Each runs its kernel for a CUDA tensor, its plain version for a CPU tensor,
 and raises for anything else. The launch plan (launch_plan) is a plain
 function of the shape, the card's SM count and how many clusters of 16
@@ -39,25 +50,37 @@ _BWD_WARPS_PER_SM = 16    # the backward's target, over the whole batch
 _BWD_ROWS = (4, 32)       # its rows per warp strip, least and most
 
 
-def tv_sums_plain(y: torch.Tensor) -> torch.Tensor:
-    """(B, 2) per-lane (sum |dx|, sum |dy|) in y's dtype."""
+def _with_halo(y: torch.Tensor, halo) -> torch.Tensor:
+    """y's rows, then the halo row (B, w*c) when one is given."""
+    if halo is None:
+        return y
+    b, _, w, c = y.shape
+    return torch.cat([y, halo.reshape(b, 1, w, c).to(y.dtype)], dim=1)
+
+
+def tv_sums_plain(y: torch.Tensor, halo=None) -> torch.Tensor:
+    """(B, 2) per-lane (sum |dx|, sum |dy|) in y's dtype; with a halo row,
+    the vertical sum also takes the pair (last row, halo)."""
     sx = (y[:, :, :-1, :] - y[:, :, 1:, :]).abs().sum(dim=(1, 2, 3))
-    sy = (y[:, :-1, :, :] - y[:, 1:, :, :]).abs().sum(dim=(1, 2, 3))
+    ext = _with_halo(y, halo)
+    sy = (ext[:, :-1, :, :] - ext[:, 1:, :, :]).abs().sum(dim=(1, 2, 3))
     return torch.stack([sx, sy], dim=1)
 
 
-def tv_plain(y: torch.Tensor):
+def tv_plain(y: torch.Tensor, h_total=None, halo=None):
     """(tv (B,), means (B, 2)) in y's dtype (the forward kernel's plain
-    version)."""
+    version); with h_total (and a halo) a block's partial means."""
     _, h, w, c = y.shape
-    sums = tv_sums_plain(y)
+    h = h if h_total is None else h_total
+    sums = tv_sums_plain(y, halo)
     means = torch.stack([sums[:, 0] / (h * (w - 1) * c),
                          sums[:, 1] / ((h - 1) * w * c)], dim=1)
     return means[:, 0] * means[:, 0] + means[:, 1] * means[:, 1], means
 
 
-def _dx_part(y: torch.Tensor) -> torch.Tensor:
+def _dx_part(y: torch.Tensor, h_total=None) -> torch.Tensor:
     _, h, w, c = y.shape
+    h = h if h_total is None else h_total
     sx = torch.sign(y[:, :, :-1, :] - y[:, :, 1:, :]) / (h * (w - 1) * c)
     grad = torch.zeros_like(y)
     grad[:, :, :-1, :] += sx
@@ -65,8 +88,9 @@ def _dx_part(y: torch.Tensor) -> torch.Tensor:
     return grad
 
 
-def _dy_part(y: torch.Tensor) -> torch.Tensor:
+def _dy_part(y: torch.Tensor, h_total=None) -> torch.Tensor:
     _, h, w, c = y.shape
+    h = h if h_total is None else h_total
     sy = torch.sign(y[:, :-1, :, :] - y[:, 1:, :, :]) / ((h - 1) * w * c)
     grad = torch.zeros_like(y)
     grad[:, :-1, :, :] += sy
@@ -74,13 +98,21 @@ def _dy_part(y: torch.Tensor) -> torch.Tensor:
     return grad
 
 
-def tv_bwd_plain(y: torch.Tensor, g: torch.Tensor,
-                 means: torch.Tensor) -> torch.Tensor:
+def tv_bwd_plain(y: torch.Tensor, g: torch.Tensor, means: torch.Tensor,
+                 h_total=None, halo=None):
     """g[b] * d tv[b] / d y[b] for every lane (the backward kernel's plain
-    version): g (B,), means (B, 2) from the forward."""
+    version): g (B,), means (B, 2) from the forward. With h_total and a
+    halo, a block's part of the image's gradient and the halo row's
+    gradient (B, w*c)."""
     kx = (g * (2.0 * means[:, 0])).reshape(-1, 1, 1, 1)
     ky = (g * (2.0 * means[:, 1])).reshape(-1, 1, 1, 1)
-    return kx * _dx_part(y) + ky * _dy_part(y)
+    if halo is None:
+        return kx * _dx_part(y, h_total) + ky * _dy_part(y, h_total)
+    b, h, w, c = y.shape
+    dy = _dy_part(_with_halo(y, halo), y.shape[1] if h_total is None
+                  else h_total)
+    grad = kx * _dx_part(y, h_total) + ky * dy[:, :h]
+    return grad, (ky * dy[:, h:]).reshape(b, w * c)
 
 
 def vec_width(w: int, c: int, data_ptr: int = 0) -> int:
@@ -132,11 +164,12 @@ def _lib():
     lib = build.load("tv")
     if lib.astt_tv_fwd.argtypes is None:
         i, p, i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
-        lib.astt_tv_fwd.argtypes = [p, i, i, i, i, i, i, i, i, p, i, p]
+        lib.astt_tv_fwd.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p,
+                                    i, p]
         lib.astt_tv_fwd_clusters.argtypes = [i, i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
-        lib.astt_tv_bwd.argtypes = [p, p, i64, p, i64, i, i, i, i, i, i, i,
-                                    i, p, i, p]
+        lib.astt_tv_bwd.argtypes = [p, p, i64, p, i64, p, i, i, i, i, i, i,
+                                    i, i, i, p, p, i, p]
         for fn in (lib.astt_tv_fwd, lib.astt_tv_fwd_clusters, lib.astt_tv_bwd):
             fn.restype = ctypes.c_int
     return lib
@@ -191,38 +224,67 @@ def _check_y(y: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: {b} lanes exceed the grid's {_MAX_LANES}")
 
 
-def _tv_out(y: torch.Tensor) -> torch.Tensor:
+def _seam_args(y: torch.Tensor, h_total, halo, what: str):
+    """(h_total, the halo's data pointer or None) of a kernel call, with
+    the halo checked: a contiguous (B, w*c) float32 tensor on y's card."""
+    b, h, w, c = y.shape
+    h_total = h if h_total is None else int(h_total)
+    if h_total < h or h_total < 2:
+        raise ValueError(f"{what}: h_total {h_total} is below the block's "
+                         f"{h} rows")
+    if halo is None:
+        return h_total, None
+    if (not halo.is_cuda or halo.device != y.device
+            or halo.dtype != torch.float32 or tuple(halo.shape) != (b, w * c)
+            or not halo.is_contiguous()):
+        raise ValueError(f"{what}: the halo must be a contiguous ({b}, "
+                         f"{w * c}) float32 tensor on {y.device}")
+    return h_total, halo.data_ptr()
+
+
+def _vec(y: torch.Tensor, halo) -> int:
+    _, _, w, c = y.shape
+    vec = vec_width(w, c, y.data_ptr())
+    if halo is not None:
+        vec = min(vec, vec_width(w, c, halo.data_ptr()))
+    return vec
+
+
+def _tv_out(y: torch.Tensor, h_total=None, halo=None) -> torch.Tensor:
     """The forward kernel's (B, 5) float32 output: each lane's (tv,
     mean_x, mean_y, sum_x, sum_y); one launch."""
     _check_y(y, "tv")
+    h_total, halo_ptr = _seam_args(y, h_total, halo, "tv")
     b, h, w, c = y.shape
     index = y.device.index
-    vec = vec_width(w, c, y.data_ptr())
+    vec = _vec(y, halo)
     plan = _plan(index, b, h, w, c, vec)
     with torch.cuda.device(y.device):  # the launch goes to the current one
         out = torch.empty((b, 5), dtype=torch.float32, device=y.device)
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = _lib().astt_tv_fwd(
-            y.data_ptr(), b, h, w, c, vec, plan["cluster"],
-            plan["fwd_warps"], plan["fwd_rows"], out.data_ptr(), index,
-            stream)
+            y.data_ptr(), halo_ptr, b, h, h_total, w, c, vec,
+            plan["cluster"], plan["fwd_warps"], plan["fwd_rows"],
+            out.data_ptr(), index, stream)
     build.check(err, "tv")
     launched("tv", stream, index)
     return out
 
 
-def tv_cuda(y: torch.Tensor):
+def tv_cuda(y: torch.Tensor, h_total=None, halo=None):
     """The forward kernel on a CUDA tensor (no fallback): (tv (B,),
     means (B, 2)), views of one buffer; one launch."""
-    out = _tv_out(y)
+    out = _tv_out(y, h_total, halo)
     return out[:, 0], out[:, 1:3]
 
 
-def tv_bwd_cuda(y: torch.Tensor, g: torch.Tensor,
-                means: torch.Tensor) -> torch.Tensor:
+def tv_bwd_cuda(y: torch.Tensor, g: torch.Tensor, means: torch.Tensor,
+                h_total=None, halo=None):
     """The backward kernel on CUDA tensors (no fallback): g (B,) of any
-    stride, means (B, 2) with unit column stride (tv_cuda's); one launch."""
+    stride, means (B, 2) with unit column stride (tv_cuda's); one launch.
+    With a halo, (grad, the halo row's gradient)."""
     _check_y(y, "tv_bwd")
+    h_total, halo_ptr = _seam_args(y, h_total, halo, "tv_bwd")
     b, h, w, c = y.shape
     for name, t, shape in (("g", g, (b,)), ("means", means, (b, 2))):
         if (not t.is_cuda or t.device != y.device or t.dtype != torch.float32
@@ -232,39 +294,46 @@ def tv_bwd_cuda(y: torch.Tensor, g: torch.Tensor,
     if means.stride(1) != 1:
         raise ValueError("tv_bwd: means must have unit column stride")
     index = y.device.index
-    vec = vec_width(w, c, y.data_ptr())
+    vec = _vec(y, halo)
     plan = _plan(index, b, h, w, c, vec)
     with torch.cuda.device(y.device):  # the launch goes to the current one
         grad = torch.empty_like(y, memory_format=torch.contiguous_format)
+        halo_grad = (None if halo is None else
+                     torch.empty((b, w * c), dtype=torch.float32,
+                                 device=y.device))
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = _lib().astt_tv_bwd(
             y.data_ptr(), g.data_ptr(), g.stride(0), means.data_ptr(),
-            means.stride(0), b, h, w, c, vec, plan["bwd_blocks"],
-            plan["bwd_warps"], plan["bwd_rows"], grad.data_ptr(), index,
+            means.stride(0), halo_ptr, b, h, h_total, w, c, vec,
+            plan["bwd_blocks"], plan["bwd_warps"], plan["bwd_rows"],
+            grad.data_ptr(),
+            None if halo_grad is None else halo_grad.data_ptr(), index,
             stream)
     build.check(err, "tv_bwd")
     launched("tv_bwd", stream, index)
-    return grad
+    return grad if halo is None else (grad, halo_grad)
 
 
-def tv(y: torch.Tensor):
+def tv(y: torch.Tensor, h_total=None, halo=None):
     """(tv (B,), means (B, 2)): the kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU tensor. h_total and halo: a block's partial means
+    (see the module docstring)."""
     if y.is_cuda:
-        return tv_cuda(y)
+        return tv_cuda(y, h_total, halo)
     if y.device.type == "cpu":
-        return tv_plain(y)
+        return tv_plain(y, h_total, halo)
     raise ValueError(f"tv: unsupported device {y.device}")
 
 
-def tv_bwd(y: torch.Tensor, g: torch.Tensor,
-           means: torch.Tensor) -> torch.Tensor:
+def tv_bwd(y: torch.Tensor, g: torch.Tensor, means: torch.Tensor,
+           h_total=None, halo=None):
     """The gradient of sum_b g[b] tv[b]: the kernel for CUDA tensors, the
-    plain version on the CPU."""
+    plain version on the CPU. With a halo, (the block's gradient, the halo
+    row's gradient) (see the module docstring)."""
     if y.is_cuda:
-        return tv_bwd_cuda(y, g, means)
+        return tv_bwd_cuda(y, g, means, h_total, halo)
     if y.device.type == "cpu":
-        return tv_bwd_plain(y, g, means)
+        return tv_bwd_plain(y, g, means, h_total, halo)
     raise ValueError(f"tv_bwd: unsupported device {y.device}")
 
 

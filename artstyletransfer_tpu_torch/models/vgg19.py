@@ -23,6 +23,8 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.blocks import halos, on_block
+
 LAYER_NAMES = ("relu1_1", "relu2_1", "relu3_1", "relu4_1", "conv4_2", "relu5_1")
 CONTENT_INDEX = 4  # conv4_2
 STYLE_INDICES = (0, 1, 2, 3, 5)  # everything except conv4_2
@@ -111,6 +113,106 @@ def extract_features(params: Params, x: torch.Tensor,
             break  # nothing past relu5_1 is ever used
 
     return Vgg19Features(*(taps[n].permute(0, 2, 3, 1) for n in LAYER_NAMES))
+
+
+def _extend(h: torch.Tensor, up, dn) -> torch.Tensor:
+    """An NCHW channels_last block with a halo row above and below (a
+    zero row at the image's top and bottom)."""
+    zero = None
+    if up is None or dn is None:
+        b, c, _, w = h.shape
+        zero = torch.empty((b, c, 1, w), dtype=h.dtype, device=h.device,
+                           memory_format=torch.channels_last).zero_()
+    return torch.cat([zero if up is None else up, h,
+                      zero if dn is None else dn], dim=2)
+
+
+class HaloConvFn(torch.autograd.Function):
+    """The 3x3 SAME convolution of an NCHW image held as its row blocks:
+    apply(n, *blocks, *weights, *biases), block k on its own device with
+    its copies of the weights (which take no gradient). Forward: each
+    block with the neighbours' facing rows (a zero row at the image's
+    top and bottom) through F.conv2d with padding (0, 1), as the whole
+    image runs with padding 1. Backward: each block's input gradient
+    (the transposed convolution: cuDNN's data gradient, which needs
+    nothing of the forward but the weights), and each
+    halo row's part added to the row it came from, in block order. One
+    node for every block: autograd's per-device threads would add a
+    block's gradient contributions in the order they arrive."""
+
+    @staticmethod
+    def forward(ctx, n: int, *args):
+        hs, ws, bs = args[:n], args[n:2 * n], args[2 * n:]
+        if any(w.requires_grad or b.requires_grad for w, b in zip(ws, bs)):
+            raise ValueError("HaloConvFn: the weights take no gradient")
+        ctx.weights = ws  # arguments of the loss, never part of its graph
+        out = []
+        for k, (h, (up, dn)) in enumerate(zip(hs, halos(hs, 2))):
+            with on_block(k):
+                out.append(F.conv2d(_extend(h, up, dn), ws[k], bs[k],
+                                    padding=(0, 1)))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        # the data gradient of a padding (0, 1) convolution: rows h + 2
+        exts = [F.conv_transpose2d(g, w, padding=(0, 1))
+                for g, w in zip(gouts, ctx.weights)]
+        grads = [e[:, :, 1:-1] for e in exts]
+        for k, e in enumerate(exts):
+            if k > 0:
+                grads[k - 1][:, :, -1:] += e[:, :, :1].to(grads[k - 1].device)
+            if k + 1 < len(exts):
+                grads[k + 1][:, :, :1] += e[:, :, -1:].to(grads[k + 1].device)
+        return (None, *grads) + (None,) * (2 * len(exts))
+
+
+def halo_conv(hs, ws, bs):
+    """The 3x3 SAME convolution of an NCHW image held as its row blocks
+    (parallel/space.py; block k on its own device, with ws[k], bs[k] its
+    copies of the weights and bias): HaloConvFn. Every block has 2 rows
+    or more at the shapes parallel/space.py's gate lets through."""
+    return list(HaloConvFn.apply(len(hs), *hs, *ws, *bs))
+
+
+def extract_features_blocks(params, xs, compute_dtype: str = "float32",
+                            use_relu: bool = True):
+    """extract_features of one image batch held as its row blocks
+    (parallel/space.py): xs[k] the (B, h/S, w, 3) NHWC rows of block k on
+    the space row's k-th device, params[k] the weights there. Returns one
+    Vgg19Features per block, each of its own rows of the six taps: the
+    convs exchange a halo row with each neighbour (halo_conv), and the
+    2x2 pools need none (every block starts on an even row and has an
+    even height at each pool)."""
+    cdt = _DTYPES[compute_dtype]
+    taps_of = {name: [] for name in LAYER_NAMES}
+    wanted = {src: (tap, kind) for tap, (src, kind) in _TAPS.items()}
+    hs = [x.to(cdt).permute(0, 3, 1, 2) for x in xs]
+    for name, _ in VGG19_LAYERS:
+        if name == "pool":
+            pooled = []
+            for k, h in enumerate(hs):
+                with on_block(k):
+                    pooled.append(F.max_pool2d(h, kernel_size=2, stride=2))
+            hs = pooled
+            continue
+        hs = halo_conv(hs, [p[name]["w"].to(cdt) for p in params],
+                       [p[name]["b"].to(cdt) for p in params])
+        tap, kind = wanted.get(name, (None, None))
+        if tap is not None and (kind == "pre" or not use_relu):
+            taps_of[tap] = hs
+        relu = []
+        for k, h in enumerate(hs):
+            with on_block(k):
+                relu.append(F.relu(h))
+        hs = relu
+        if tap is not None and kind == "post" and use_relu:
+            taps_of[tap] = hs
+        if name == "conv5_1":
+            break  # nothing past relu5_1 is ever used
+    return [Vgg19Features(*(taps_of[n][k].permute(0, 2, 3, 1)
+                            for n in LAYER_NAMES))
+            for k in range(len(xs))]
 
 
 def prepare_model(model: str):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import gram as kgram
+from .blocks import on_block, shard_sum
 
 
 def features(x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +47,17 @@ def gram_matrix(x: torch.Tensor, should_normalize: bool = True) -> torch.Tensor:
     _, h, w, c = x.shape
     scale = 1.0 / (c * h * w) if should_normalize else 1.0
     return GramFn.apply(x, scale)
+
+
+def space_gram_matrix(blocks) -> torch.Tensor:
+    """gram_matrix of an NHWC map held as its row blocks on the devices of
+    a space row (parallel/space.py): each block's partial Gram with the
+    whole map's scale 1 / (c h w), summed on the first block's device in
+    shard order; its backward is each block's own Gram backward."""
+    _, _, w, c = blocks[0].shape
+    scale = 1.0 / (c * sum(b.shape[1] for b in blocks) * w)
+    parts = []
+    for k, f in enumerate(blocks):
+        with on_block(k):
+            parts.append(GramFn.apply(f, scale))
+    return shard_sum(parts)

@@ -16,6 +16,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .blocks import halos, on_block
+
 _A = -0.75  # cubic kernel sharpness used by both OpenCV and torch
 
 
@@ -86,6 +88,72 @@ def downscale2x(img: torch.Tensor) -> torch.Tensor:
     pyramid step (reference neural_style_transfer.py:173-176)."""
     _, h, w, _ = img.shape
     return bicubic_resize(img, h // 2, w // 2)
+
+
+@lru_cache(maxsize=256)
+def _block_rows(h: int, n_space: int, k: int, device: str):
+    """(first input row, the (h/(2 S), rows read) block of the downscale
+    matrix) of block k of an h-row image over n_space blocks: the rows of
+    resize_matrix(h, h/2) for the block's own output rows, and the
+    columns from one row above its input block to one row below it
+    (clipped at the image's first and last rows, where the replicate
+    border is already in the matrix). Every other column of those rows is
+    0, so the block form is exact row by row."""
+    hk = h // n_space
+    o0, o1 = k * hk // 2, (k + 1) * hk // 2
+    a, z = max(k * hk - 1, 0), min((k + 1) * hk + 1, h)
+    rows = resize_matrix(h, h // 2)[o0:o1]
+    if np.count_nonzero(rows[:, :a]) or np.count_nonzero(rows[:, z:]):
+        raise ValueError(f"block {k} of {n_space} of {h} rows reads past "
+                         "its halos")
+    return a, torch.from_numpy(rows[:, a:z].copy()).to(device)
+
+
+class DownscaleBlocksFn(torch.autograd.Function):
+    """downscale2x of an NHWC image held as its row blocks: apply(*blocks)
+    (parallel/space.py: equal heights, block k on its own device, each a
+    multiple of 2 rows). Forward: block k's output rows from its own rows
+    and one halo row from each neighbour (_block_rows), then the width
+    pass, in float32 as bicubic_resize. Backward: the transposed products,
+    and each halo row's gradient added to the row it came from, in block
+    order (one node for every block, as models/vgg19.py's HaloConvFn)."""
+
+    @staticmethod
+    def forward(ctx, *blocks):
+        n = len(blocks)
+        _, hk, w, _ = blocks[0].shape
+        ctx.mats, out = [], []
+        for k, (b, (up, dn)) in enumerate(zip(blocks, halos(blocks, 1))):
+            with on_block(k):
+                r_h = _block_rows(hk * n, n, k, str(b.device))[1]
+                r_w = _device_matrix(w, w // 2, str(b.device))
+                x = torch.cat([t for t in (up, b, dn) if t is not None],
+                              dim=1).float()
+                o = torch.einsum("iy,byxc->bixc", r_h, x)
+                out.append(torch.einsum("jx,bixc->bijc", r_w, o))
+                ctx.mats.append((r_h, r_w))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        exts = [torch.einsum("iy,bixc->byxc", r_h,
+                             torch.einsum("jx,bijc->bixc", r_w, g))
+                for g, (r_h, r_w) in zip(gouts, ctx.mats)]
+        n = len(exts)
+        grads = [e[:, int(k > 0):e.shape[1] - int(k + 1 < n)]
+                 for k, e in enumerate(exts)]
+        for k, e in enumerate(exts):
+            if k > 0:
+                grads[k - 1][:, -1:] += e[:, :1].to(grads[k - 1].device)
+            if k + 1 < n:
+                grads[k + 1][:, :1] += e[:, -1:].to(grads[k + 1].device)
+        return tuple(grads)
+
+
+def downscale2x_blocks(blocks):
+    """downscale2x of an NHWC image held as its row blocks: block k of the
+    result holds the output rows of block k (DownscaleBlocksFn)."""
+    return list(DownscaleBlocksFn.apply(*blocks))
 
 
 def bicubic_resize_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

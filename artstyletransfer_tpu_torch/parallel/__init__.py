@@ -1,5 +1,6 @@
 """Batched multi-job execution: the job queue in lanes, on one card or
-over the jobs axis of a mesh of cards."""
+over a mesh of cards (jobs over its jobs axis, one job's pixels over its
+space axis)."""
 
 from .mesh import (Mesh, default_serving_mesh, jobs_mesh,  # noqa: F401
                    jobs_space_mesh, multislice_jobs_space_mesh)

@@ -36,9 +36,19 @@ thread of its own, and the shards meet at every chunk boundary
 (parallel/shards.py). Losses and images are composed in lane order, a
 convergence shrink re-forms the lanes over the shards (a lane may move to
 another card), and a checkpoint holds the whole batch in lane order, the
-file of an unsharded batch. Space sharding (one job's pixels over several
-cards, a GSPMD feature of the JAX package) is not ported and raises
-NotImplementedError.
+file of an unsharded batch.
+
+On a ('jobs', 'space') mesh with shard_space, each jobs row is a space
+row of S devices (parallel/space.py): its batch (the shard of that row,
+or the whole batch on a jobs axis of 1) holds each lane's image split by
+rows over the S devices, as SpaceLanes, and so its gradients and its
+optimizer state; one graph spans the row's devices and runs eagerly (no
+CUDA graph spans cards). Where the level shapes do not pass
+space.space_gate, a space row runs its lanes unsharded on its first
+device and says why on stderr; without a mesh shard_space does nothing,
+as in the JAX package. A shrink selects lanes within each block, and a
+checkpoint holds the unsharded layout, so a space batch and an unsharded
+one resume from each other's files.
 """
 
 from __future__ import annotations
@@ -62,15 +72,17 @@ from ..engine import graphs as graphs_mod
 from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, HostCopies,
                                LossGrad, _Adam, _Lbfgs, _check_supported,
                                _compute_targets, _config_key,
-                               _make_pyramid_loss, _raise_nonfinite_batch,
-                               async_steps, eval_graph, lbfgs_history_gb,
-                               use_graphs, warn_lbfgs_hbm)
+                               _make_pyramid_loss, _make_space_pyramid_loss,
+                               _raise_nonfinite_batch, async_steps,
+                               eval_graph, lbfgs_history_gb, use_graphs,
+                               warn_lbfgs_hbm)
 from ..models.weights import shared_params
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
 from .mesh import check_mesh, jobs_axis, placement
 from .shards import (Lanes, ShardedOpt, gather_lanes, run_on_shards,
                      shard_bounds, split_rows)
+from .space import SpaceLanes, row_mesh, space_gate
 
 
 def _select_targets(targets, idx: torch.Tensor):
@@ -81,12 +93,22 @@ def _select_targets(targets, idx: torch.Tensor):
                  for content, grams in targets)
 
 
-def _gather_targets(shard_targets, rows: Sequence[int], device):
+def _gather(parts, rows: Sequence[int], device, space=None):
+    """gather_lanes of `parts`, or of space rows' SpaceLanes pieces block
+    by block onto the devices `space` of the space row they go to."""
+    if not isinstance(parts[0], SpaceLanes):
+        return gather_lanes(parts, rows, device)
+    return SpaceLanes([gather_lanes([p.blocks[k] for p in parts], rows, dev)
+                       for k, dev in enumerate(space)])
+
+
+def _gather_targets(shard_targets, rows: Sequence[int], device, space=None):
     """Rows `rows` of the lane-stacked targets that `shard_targets` (one
-    targets tuple per shard, in lane order) hold together, on `device`."""
+    targets tuple per shard, in lane order) hold together, on `device`
+    (a space row's content taps on the devices `space`)."""
     first = shard_targets[0]
     return tuple(
-        (gather_lanes([t[lvl][0] for t in shard_targets], rows, device),
+        (_gather([t[lvl][0] for t in shard_targets], rows, device, space),
          tuple(gather_lanes([t[lvl][1][k] for t in shard_targets], rows,
                             device) for k in range(len(first[lvl][1]))))
         for lvl in range(len(first)))
@@ -147,8 +169,14 @@ class BatchedTransferJob:
     (`device` may then only name that device type); `shards` holds them,
     None without a mesh or on a jobs axis of 1. Its images, losses and
     optimizer are then Lanes and a ShardedOpt (parallel/shards.py), and
-    there is no `targets` of the whole batch. shard_space raises
-    NotImplementedError."""
+    there is no `targets` of the whole batch.
+
+    shard_space on a ('jobs', 'space') mesh: each jobs row's lanes split
+    their rows over that row's S devices (parallel/space.py), where the
+    level shapes pass space_gate; `space` is then the row's devices (of
+    each shard, on a jobs axis above 1), the images are SpaceLanes and the
+    evaluation runs eagerly (graphs=True raises). Each shard of a jobs
+    axis above 1 is such a batch on its row's mesh (space.row_mesh)."""
 
     def __init__(self, contents: Sequence[np.ndarray],
                  styles: Sequence[np.ndarray], cfg: Config, params=None,
@@ -159,11 +187,13 @@ class BatchedTransferJob:
         if len(contents) != len(styles) or not contents:
             raise ValueError("need one style per content and at least one "
                              "job")
-        check_mesh(mesh, shard_space)
+        check_mesh(mesh)
         self.cfg = cfg
         self.mesh = mesh
         self.device = placement(mesh, device)
         _check_supported(cfg)
+        n_space = (mesh.shape.get("space", 1)
+                   if shard_space and mesh is not None else 1)
 
         c0 = contents[0].shape
         s0 = styles[0].shape
@@ -190,12 +220,11 @@ class BatchedTransferJob:
                 init_overrides.append(init_overrides[-1])
         self.batch = len(contents)
         self.shards: Optional[List[BatchedTransferJob]] = None
+        self.space: Optional[Tuple[torch.device, ...]] = None
         if axis > 1:
             self._init_shards(contents, styles, init_overrides, params,
-                              graphs)
+                              graphs, n_space)
             return
-        self.params = shared_params(params, cfg.seed, self.device)
-        self.graphs = use_graphs(self.device, graphs)
 
         # per-job pyramids, stacked along the lane axis
         c_stack: List[List[np.ndarray]] = []
@@ -215,8 +244,24 @@ class BatchedTransferJob:
             x0.append(prepare_img(init_img).reshape(-1))
 
         self.level_shapes = [tuple(arr.shape) for arr in c_stack[0]]
+        if n_space > 1:
+            ok, why = space_gate(self.level_shapes, n_space)
+            if ok:
+                self.space = tuple(mesh.devices)
+            else:
+                print(f"space sharding: {why}; the batch's lanes run "
+                      f"unsharded on {self.device}", file=sys.stderr)
+        n_space = len(self.space) if self.space else 1
+        if self.space and graphs:
+            raise ValueError("graphs=True: a space batch runs eagerly (no "
+                             "CUDA graph spans the cards of a space row)")
+        self.graphs = use_graphs(self.device, False if self.space else graphs)
+        params0 = shared_params(params, cfg.seed, self.device)
+        # a space row's weights: one copy on each of its devices
+        self.params = ([shared_params(params, cfg.seed, d)
+                        for d in self.space] if self.space else params0)
         if cfg.optimizer == "lbfgs":
-            warn_lbfgs_hbm(cfg, self.level_shapes, self.batch)
+            warn_lbfgs_hbm(cfg, self.level_shapes, self.batch, n_space)
 
         def lanes_on_device(stack, lvl):
             return torch.from_numpy(np.concatenate(
@@ -225,18 +270,36 @@ class BatchedTransferJob:
         n_levels = len(self.level_shapes)
         c_dev = [lanes_on_device(c_stack, lvl) for lvl in range(n_levels)]
         s_dev = [lanes_on_device(s_stack, lvl) for lvl in range(n_levels)]
-        self._loss_fn = _make_pyramid_loss(self.level_shapes, cfg)
         with precision_gate(cfg.conv_precision):
-            self.targets = _compute_targets(self.params, c_dev, s_dev, cfg)
-        self._x0 = torch.from_numpy(np.stack(x0)).to(self.device)  # (B, n)
+            self.targets = _compute_targets(params0, c_dev, s_dev, cfg)
+        if self.space:
+            # computed whole on the first device; the content taps are
+            # split by the same rows as the image, the Grams stay there
+            self._loss_fn = _make_space_pyramid_loss(self.level_shapes, cfg)
+            self.targets = tuple(
+                (SpaceLanes.split(content.reshape(content.shape[0], -1),
+                                  self.space), grams)
+                for content, grams in self.targets)
+        else:
+            self._loss_fn = _make_pyramid_loss(self.level_shapes, cfg)
+        self._x0 = self._upload(torch.from_numpy(np.stack(x0)))  # (B, n)
         # ((B,) losses, (B, n) gradients) at x: the gradient of the
         # losses' sum, which is each lane's own gradient
         self._loss_grad = LossGrad(self, self.targets, self.graphs)
 
-    def _init_shards(self, contents, styles, inits, params, graphs) -> None:
+    def _upload(self, rows: torch.Tensor):
+        """Host rows (B, n) of this one-card batch's layout: on its device,
+        or split over its space row."""
+        if self.space:
+            return SpaceLanes.split(rows, self.space)
+        return rows.to(self.device)
+
+    def _init_shards(self, contents, styles, inits, params, graphs,
+                     n_space: int = 1) -> None:
         """The shards of a batch on a mesh: one one-card batch per jobs row,
         built in its shard thread, from the lanes' init images (seeded by
-        their index in the whole batch)."""
+        their index in the whole batch); on a space axis of n_space > 1
+        each shard's lanes split over its row's devices."""
         cfg = self.cfg
         if inits is None:
             inits = [build_init_image(
@@ -248,11 +311,14 @@ class BatchedTransferJob:
         self.shards = run_on_shards(self._devices, [
             partial(_ONE_CARD, contents[a:b], styles[a:b], cfg,
                     params=params, init_overrides=inits[a:b], device=dev,
-                    graphs=graphs)
-            for dev, (a, b) in zip(self._devices,
-                                   shard_bounds([per] * len(self._devices)))])
+                    graphs=graphs,
+                    mesh=row_mesh(self.mesh, i) if n_space > 1 else None,
+                    shard_space=n_space > 1)
+            for i, (dev, (a, b)) in enumerate(zip(
+                self._devices, shard_bounds([per] * len(self._devices))))])
         self.level_shapes = self.shards[0].level_shapes
         self.graphs = self.shards[0].graphs
+        self.space = self.shards[0].space
         self._x0 = Lanes([shard._x0 for shard in self.shards])
 
     def _on_shards(self, fn, *per_shard) -> list:
@@ -386,14 +452,14 @@ class BatchedTransferJob:
         """A whole batch's host rows on the batch's device, or split over
         its shards (the layout of a batch of that many lanes)."""
         if not self.shards:
-            return x_host.to(self.device)
+            return self._upload(x_host)
         axis = len(self.shards)
         if x_host.shape[0] % axis:
             raise ValueError(f"{x_host.shape[0]} lanes do not split over a "
                              f"jobs axis of {axis}")
         bounds = shard_bounds([x_host.shape[0] // axis] * axis)
-        return Lanes([x_host[a:b].to(dev)
-                      for dev, (a, b) in zip(self._devices, bounds)])
+        return Lanes([shard._upload(x_host[a:b])
+                      for shard, (a, b) in zip(self.shards, bounds)])
 
     def _targets_of(self, lanes: Sequence[int]):
         """The construction targets of the given lanes, in that order: one
@@ -404,8 +470,8 @@ class BatchedTransferJob:
         axis = len(self.shards)
         bounds = shard_bounds([len(lanes) // axis] * axis)
         return [_gather_targets([sh.targets for sh in self.shards],
-                                lanes[a:b], dev)
-                for dev, (a, b) in zip(self._devices, bounds)]
+                                lanes[a:b], sh.device, sh.space)
+                for sh, (a, b) in zip(self.shards, bounds)]
 
     def _select_lanes(self, x, f, opt, targets, sel: List[int]):
         """Keep (and repeat) lanes `sel` of a running batch: its images,
@@ -427,16 +493,17 @@ class BatchedTransferJob:
         def regather(parts):
             # a leaf the optimizer keeps on the host stays there
             host = parts[0].device.type == "cpu"
-            return Lanes([gather_lanes(parts, sel[a:b],
-                                       parts[0].device if host else dev)
-                          for dev, (a, b) in zip(self._devices, bounds)])
+            return Lanes([_gather(parts, sel[a:b],
+                                  parts[0].device if host else sh.device,
+                                  sh.space)
+                          for sh, (a, b) in zip(self.shards, bounds)])
 
         x, f = regather(x.parts), regather(f.parts)
         leaves = {name: (regather(leaf.parts) if isinstance(leaf, Lanes)
                          else leaf)  # a counter the lanes share
                   for name, leaf in opt.shard_leaves().items()}
-        targets = [_gather_targets(old, sel[a:b], dev)
-                   for dev, (a, b) in zip(self._devices, bounds)]
+        targets = [_gather_targets(old, sel[a:b], sh.device, sh.space)
+                   for sh, (a, b) in zip(self.shards, bounds)]
         return x, f, self.init_opt(x, leaves, targets), targets
 
     def run(self, iters_num: Optional[int] = None,
@@ -627,7 +694,7 @@ class BatchedTransferJob:
                             # repeating the last one
                             for lane, orig, cur in ready:
                                 finished[orig] = (
-                                    x[lane].reshape(top[1:]).cpu().numpy(),
+                                    x[lane].cpu().numpy().reshape(top[1:]),
                                     cur)
                             sel = still + [still[-1]] * (tgt - len(still))
                             print(f"stop_tol: {len(ready)} job(s) converged at "
@@ -754,25 +821,40 @@ def resolve_batch_policy(cfg: Config, batch_policy: str = "auto") -> str:
 _SATURATION_BATCH = 32
 
 
-def max_jobs_per_batch(cfg: Config, content_shape: tuple) -> int:
+def max_jobs_per_batch(cfg: Config, content_shape: tuple,
+                       space: int = 1) -> int:
     """Memory-aware cap on jobs per batch for one bucket: the L-BFGS
     history pairs (2 * history * n_pixels values per job, 4 or 2 bytes
-    each) against the history budget, and the saturation batch."""
+    each; a card's share over a space row of `space` cards) against the
+    history budget, and the saturation batch."""
     cap = _SATURATION_BATCH
     if cfg.optimizer == "lbfgs":
         h, w = level_shape(content_shape[0], content_shape[1],
                            cfg.levels_num - 1, cfg.base_diameter)
-        per_job_gb = lbfgs_history_gb(cfg, [(1, h, w, 3)])
+        per_job_gb = lbfgs_history_gb(cfg, [(1, h, w, 3)], space=space)
         if per_job_gb > 0:
             cap = min(cap, max(1, int(LBFGS_HISTORY_BUDGET_GB / per_job_gb)))
     return cap
 
 
+def bucket_space(cfg: Config, content_shape: tuple, n_space: int) -> int:
+    """The space axis a bucket's batches shard their rows over: n_space
+    where its level shapes pass space.space_gate, else 1."""
+    if n_space < 2:
+        return 1
+    shapes = [(1,) + level_shape(content_shape[0], content_shape[1], lvl,
+                                 cfg.base_diameter) + (3,)
+              for lvl in reversed(range(cfg.levels_num))]
+    return n_space if space_gate(shapes, n_space)[0] else 1
+
+
 def resolve_group_cap(cfg: Config, content_shape: tuple, jobs_axis: int,
-                      policy: str, max_batch: Optional[int]) -> int:
+                      policy: str, max_batch: Optional[int],
+                      space: int = 1) -> int:
     """Jobs per group for one bucket (see run_job_queue). An explicit
     max_batch is a literal total cap, rounded down to a multiple of the
-    jobs axis (1 on one card)."""
+    jobs axis (1 on one card). space: the space axis the bucket's rows
+    shard over (bucket_space), which divides each card's history."""
     if policy == "sequential":
         return 1
     if max_batch is not None:
@@ -780,7 +862,7 @@ def resolve_group_cap(cfg: Config, content_shape: tuple, jobs_axis: int,
         if jobs_axis > 1 and cap >= jobs_axis:
             cap -= cap % jobs_axis
         return max(1, cap)
-    return max_jobs_per_batch(cfg, content_shape) * jobs_axis
+    return max_jobs_per_batch(cfg, content_shape, space) * jobs_axis
 
 
 def planned_round_sizes(cfg: Config, content_shape: tuple, n_jobs: int,
@@ -860,9 +942,12 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     explicit max_batch is rounded down to a multiple of A, and a group is
     padded to a multiple of A; a 'sequential' group of one job runs
     without the mesh (on its first device), not padded over A cards, as
-    in the JAX package. shard_space raises NotImplementedError.
+    in the JAX package. shard_space: each group's jobs also split their
+    rows over the mesh's space axis (BatchedTransferJob), and the cap
+    counts each card's share of the history; a sequential group without
+    the mesh runs unsharded, as in the JAX package.
     """
-    check_mesh(mesh, shard_space)
+    check_mesh(mesh)
     dev = placement(mesh, device)
     if checkpoint_dir is not None and checkpoint_every is None:
         checkpoint_every = cfg.stream_every  # the CLI's default too
@@ -889,9 +974,12 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     # many jobs, and a group is a multiple of A or its padding replicas
     # would exceed the budget the cap keeps
     axis = jobs_axis(mesh)
+    n_space = (mesh.shape.get("space", 1)
+               if shard_space and mesh is not None else 1)
     for bucket in bucket_jobs(jobs).values():
-        cap = resolve_group_cap(cfg, bucket[0][1].shape, axis, policy,
-                                max_batch)
+        cap = resolve_group_cap(
+            cfg, bucket[0][1].shape, axis, policy, max_batch,
+            bucket_space(cfg, bucket[0][1].shape, n_space))
         groups = [bucket[i:i + cap] for i in range(0, len(bucket), cap)]
         for group in groups:
             ids = [j[0] for j in group]
@@ -925,8 +1013,9 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
                 try:
                     batch = BatchedTransferJob(
                         [j[1] for j in group], [j[2] for j in group], cfg,
-                        params=params, mesh=group_mesh, pad_batch_to=pad_to,
-                        device=group_dev)
+                        params=params, mesh=group_mesh,
+                        shard_space=shard_space and group_mesh is not None,
+                        pad_batch_to=pad_to, device=group_dev)
                     imgs = None
                     for done, imgs, losses in batch.run(
                             yield_images=stream_images,

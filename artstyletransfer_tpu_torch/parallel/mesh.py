@@ -11,9 +11,11 @@ A batch on a mesh whose jobs axis is A splits its lanes into A contiguous
 shards, one per jobs row; each shard is a one-card batch with its own
 captured graph, stepped by a host thread of its own (parallel/shards.py).
 Jobs are independent, so the jobs axis carries no collective and needs no
-``torch.distributed``. The space axis (one job's pixels over several
-cards) is not ported: a batch asked to shard space over it raises; without
-that, each jobs row runs on its first device.
+``torch.distributed``. The space axis splits one job's pixels by rows over
+the S devices of a jobs row when a batch is asked to (shard_space;
+parallel/space.py): that row's shard thread drives its S devices, and one
+autograd graph spans them, so it needs no ``torch.distributed`` either.
+Without shard_space each jobs row runs on its first device.
 
 A mesh may name one device twice. The CPU tests build ``[cpu, cpu]`` (the
 CPU is one device, where the JAX tests use eight virtual ones), and
@@ -166,11 +168,11 @@ def default_serving_mesh(n_space: int = 1) -> Optional[Mesh]:
     return multislice_jobs_space_mesh(n_space)
 
 
-def serving_mesh(device) -> Optional[Mesh]:
-    """default_serving_mesh() for a frontend that serves on `device`:
-    None when it serves on the CPU."""
-    return (default_serving_mesh() if torch.device(device).type == "cuda"
-            else None)
+def serving_mesh(device, n_space: int = 1) -> Optional[Mesh]:
+    """default_serving_mesh(n_space) for a frontend that serves on
+    `device`: None when it serves on the CPU."""
+    return (default_serving_mesh(n_space)
+            if torch.device(device).type == "cuda" else None)
 
 
 def jobs_axis(mesh) -> int:
@@ -178,16 +180,11 @@ def jobs_axis(mesh) -> int:
     return mesh.shape.get("jobs", 1) if mesh is not None else 1
 
 
-def check_mesh(mesh, shard_space: bool = False) -> None:
-    """Raise unless `mesh` is None or a Mesh, and for space sharding,
-    which is not ported."""
+def check_mesh(mesh) -> None:
+    """Raise unless `mesh` is None or a Mesh."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh or None, got "
                         f"{type(mesh).__name__}")
-    if shard_space:
-        raise NotImplementedError(
-            "space sharding (one job's pixels over several cards) is not "
-            "ported")
 
 
 def placement(mesh, device=None) -> torch.device:

@@ -155,12 +155,12 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               remat_levels off and on: 10 steps in chunks of 5 at 1 and 4
               lanes (TF32 convs), 3 steps at 1 lane at
               conv_precision="highest", then 8 lanes with remat and
-              without, each run only if parallel/memory.py's memory_stats
-              predicts it below 70 GB and the peak extrapolated from the
-              1- and 4-lane runs is below 70 GB too (else the prediction
-              alone: an evaluation's measured peak is the top level's
-              backward, ~10 GB a lane with remat or without, so 8 lanes
-              do not fit an 80 GB card). Printed for each run:
+              without, each run only if the peak extrapolated from the
+              1- and 4-lane runs and parallel/memory.py's memory_stats
+              both stay below 70 GB (else that extrapolation alone: an
+              evaluation's measured peak is the top level's backward,
+              ~10 GB a lane with remat or without, so 8 lanes do not fit
+              an 80 GB card). Printed for each run:
               memory_stats' prediction (arguments, saved activations,
               the recomputed level) beside its measured peak_bytes and
               the run's own peak, construction and capture seconds,
@@ -209,6 +209,35 @@ kernels from artstyletransfer_tpu_torch/kernels/csrc with nvcc, then
               per card beside each card's measured peak. Counters zeroed
               before and read after each run, per card: every card of the
               mesh must show gram, gram_bwd, tv and tv_bwd.
+15. space   — one job's rows over the cards of a space row
+              (parallel/space.py): the first two cards
+              (jobs_space_mesh(1, 2)) and the first four where four are
+              visible, else the rehearsal, cuda:0 named twice (said on
+              its own line with the cards' names, power limits and peer
+              access). The TV seam kernels (h_total and a halo row) at
+              every block shape of the 2048 px 4-level job at S = 2 and
+              4 against their plain versions and float64, the block's own
+              rows in the kernels' bits. The block downscale forward and
+              backward at every 2048 px block shape at S = 2 and 4, on
+              that many cards where visible, against the whole one
+              (1e-5 of the largest entry), and with its halo gradients
+              dropped (a planted fault the check must catch). The large
+              job at conv_precision="highest", eager on both sides,
+              against the unsharded job on cuda:0: the first evaluation
+              (loss rtol 1e-4, a rerun bit-equal; the gradient within
+              1e-4 of the top level alone, and over four levels within
+              twice the unsharded gradient's own move at an input one ulp
+              away, which the same planted fault must fail), 5 Adam
+              steps (losses finite, rtol 1e-3, each step moving the way
+              the unsharded run's moves, the last below the first; PSNR
+              printed), ms per step sharded and unsharded eager and
+              unsharded graphed, host syncs of one evaluation; a unit
+              L-BFGS lane with carried Grams and remat (production_config,
+              2 steps: first loss rtol 1e-4, losses finite and falling,
+              history GB per shard); the peak per card and memory_stats
+              per shard for both lanes. Counters zeroed before and read
+              after each run: every card of the row must show gram,
+              gram_bwd, tv and tv_bwd.
 
 Each phase prints one JSON line per run. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing any result. The last
@@ -862,12 +891,15 @@ def kernel_summary(rows, paths):
     launches summed over the driven paths, and per path. Each kernel also
     carries `lanes8`: the same sums over its 8-lane (8-image) rows, and
     the Gram and TV kernels `size2048_lanes1` / `_lanes4`: the sums over
-    the large phase's top-level rows, with their largest float64 error."""
+    the large phase's top-level rows, with their largest float64 error,
+    and the TV kernels `seam2048`: the sums over the space phase's seam
+    rows (seam_rows), with theirs."""
     main_tv = {(h, w) for h, w in TV_SHAPES}
     out = []
     for name, meta in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name
                and r["dtype"] == "float32" and "lanes" not in r
+               and "seam" not in r
                and (not name.startswith("tv") or (r["h"], r["w"]) in main_tv)]
         t_bytes = sum(r["bound_ms"] for r in sel if r["bound_by"] == "bytes")
         t_ops = sum(r["bound_ms"] for r in sel if r["bound_by"] == "operations")
@@ -888,6 +920,11 @@ def kernel_summary(rows, paths):
                 extra[f"size{LARGE_HW}_lanes{lanes}"] = dict(
                     _sums(big), max_rel_err_f64=max(
                         (r.get("rel_err_f64", 0.0) for r in big)))
+        seam = [r for r in rows if r["kernel"] == name and "seam" in r]
+        if seam:
+            extra["seam2048"] = dict(
+                _sums(seam), rows=len(seam),
+                max_rel_err_f64=max(r["rel_err_f64"] for r in seam))
         if "replaces_note" in meta:
             extra["replaces_note"] = meta["replaces_note"]
         out.append(dict(
@@ -2944,13 +2981,13 @@ def gb(n):
 
 
 def run_large(name, cfg, lanes, params, expected_peak=None):
-    """memory_stats' prediction (and, when it and expected_peak, a peak
-    extrapolated from runs of fewer lanes, are below LARGE_LIMIT, its
-    measured peak), then a BatchedTransferJob of `lanes` lanes at 2048 px
-    run graphed for cfg.iters_num steps, with the counters zeroed just
-    before and read just after. Returns (record, launches, final images,
-    final losses), or (record, None, None, None) for a prediction
-    alone."""
+    """Unless expected_peak, a peak extrapolated from runs of fewer
+    lanes, is above LARGE_LIMIT: memory_stats' prediction (and, when it
+    is below LARGE_LIMIT, its measured peak), then a BatchedTransferJob of
+    `lanes` lanes at 2048 px run graphed for cfg.iters_num steps, with the
+    counters zeroed just before and read just after. Returns (record,
+    launches, final images, final losses), or (record, None, None, None)
+    for an extrapolation or a prediction alone."""
     import numpy as np
     import torch
 
@@ -2959,11 +2996,20 @@ def run_large(name, cfg, lanes, params, expected_peak=None):
     from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
     from artstyletransfer_tpu_torch.parallel.memory import memory_stats
 
+    if expected_peak is not None and expected_peak > LARGE_LIMIT:
+        # the extrapolation alone (memory_stats' count of a batch this
+        # large takes ~8 s and decides nothing)
+        rec = dict(phase="large", run=name, lanes=lanes,
+                   remat=cfg.remat_levels, precision=cfg.conv_precision,
+                   expected_peak_gb=gb(expected_peak),
+                   not_run=f"extrapolated peak above {gb(LARGE_LIMIT)} GB")
+        emit(rec)
+        RECORD.setdefault("large", []).append(rec)
+        return rec, None, None, None
     free_card()
     t0 = time.perf_counter()
-    too_big = expected_peak is not None and expected_peak > LARGE_LIMIT
     stats = memory_stats(cfg, (LARGE_HW, LARGE_HW), lanes, device="cuda",
-                         limit_bytes=0 if too_big else LARGE_LIMIT)
+                         limit_bytes=LARGE_LIMIT)
     rec = dict(phase="large", run=name, lanes=lanes,
                remat=cfg.remat_levels, precision=cfg.conv_precision,
                expected_peak_gb=gb(expected_peak),
@@ -2975,8 +3021,7 @@ def run_large(name, cfg, lanes, params, expected_peak=None):
                stats_before_gb=gb(stats.get("allocated_before_bytes")),
                stats_s=time.perf_counter() - t0)
     if stats["peak_bytes"] is None:
-        rec["not_run"] = (f"{'extrapolated peak' if too_big else 'predicted'}"
-                          f" above {gb(LARGE_LIMIT)} GB")
+        rec["not_run"] = f"predicted above {gb(LARGE_LIMIT)} GB"
         emit(rec)
         RECORD.setdefault("large", []).append(rec)
         return rec, None, None, None
@@ -3565,6 +3610,567 @@ def phase_mesh():
     return paths
 
 
+# the space phase: the large job at full float32, eager on both sides
+SPACE_ADAM = dict(LARGE, conv_precision="highest", iters_num=5,
+                  stream_every=1)
+SPACE_LBFGS = dict(LARGE, optimizer="lbfgs", lbfgs_t_init="unit",
+                   conv_precision="highest", remat_levels=True,
+                   iters_num=2, stream_every=1)
+SPACE_GATE = dict(loss_rtol=1e-4, grad_rel=1e-4, adam_rtol=1e-3,
+                  grad_rel_of_control=2.0, downscale_rel=1e-5)
+# the large job's top level alone: its first evaluation takes the same
+# input bits on both sides
+SPACE_TOP = dict(SPACE_ADAM, levels_num=1, base_diameter=LARGE_HW)
+SEAM_AXES = (2, 4)  # space axes whose 2048 px block shapes the seam rows check
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def seam_rows(gen, rows):
+    """The TV kernels at a seam (parallel/space.py) at every block shape
+    of the 2048 px 4-level job over SEAM_AXES: an integer-valued block of
+    h/S rows of an h x h x 3 level, h_total = h and the next block's first
+    row as its halo, against the plain versions (float32 and float64,
+    tv_rows' tolerances); the block's own rows must give the kernel's bits
+    without the halo (the forward's sum over |dx|, every backward row but
+    the last), and the halo row's gradient is checked as the grad is.
+    Bounds: y and the halo read once, 5 floats a lane written (forward);
+    y, the halo, g and the means read, the grad and the halo's gradient
+    written (backward)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import tv as ktv
+
+    dev = torch.device("cuda")
+    for n in SEAM_AXES:
+        for h in (LARGE_HW >> lvl for lvl in range(LARGE["levels_num"])):
+            shape = (1, h // n, h)
+            y = torch.randint(-128, 128, (1, h // n, h, 3), generator=gen,
+                              device=dev).float()
+            halo = torch.randint(-128, 128, (1, h * 3), generator=gen,
+                                 device=dev).float()
+            g = torch.rand((1,), generator=gen, device=dev) + 0.5
+            tag = dict(seam=n, image=h, h=h // n, w=h)
+            out = one_launch("tv", lambda: ktv._tv_out(y, h, halo))
+            alone = ktv._tv_out(y, h)
+            _tv, ref = ktv.tv_plain(y, h, halo)
+            _tv64, ref64 = ktv.tv_plain(y.double(), h, halo.double())
+            torch.cuda.synchronize()
+            if not torch.equal(out[:, 3], alone[:, 3]):
+                raise AssertionError(f"tv seam {shape}: the block's own "
+                                     "|dx| sum differs from the kernel's")
+            err, rel, tol = _check("tv", "float32", out[:, 1:3], ref, shape)
+            b_ms, b_by = bound(y.numel() * 4 + halo.numel() * 4 + 20,
+                               6 * y.numel(), "float32")
+            rows.append(dict(
+                kernel="tv", dtype="float32", **tag, max_abs_err=err,
+                rel_err=rel, tol=tol,
+                **f64_check("tv", out[:, 1:3], ref, ref64, shape),
+                bound_ms=b_ms, bound_by=b_by,
+                **timings(lambda: ktv._tv_out(y, h, halo),
+                          lambda: ktv.tv_plain(y, h, halo), None)))
+            emit(dict(phase="space", **rows[-1]))
+
+            means = ref.contiguous()
+            grad, hgrad = one_launch(
+                "tv_bwd", lambda: ktv.tv_bwd_cuda(y, g, means, h, halo))
+            alone = ktv.tv_bwd_cuda(y, g, means, h)
+            pg, ph = ktv.tv_bwd_plain(y, g, means, h, halo)
+            pg64, ph64 = ktv.tv_bwd_plain(y.double(), g.double(),
+                                          means.double(), h, halo.double())
+            torch.cuda.synchronize()
+            if not torch.equal(grad[:, :-1], alone[:, :-1]):
+                raise AssertionError(f"tv_bwd seam {shape}: rows above the "
+                                     "seam differ from the kernel's")
+            both = torch.cat([grad.reshape(-1), hgrad.reshape(-1)])
+            ref = torch.cat([pg.reshape(-1), ph.reshape(-1)])
+            err, rel, tol = _check("tv_bwd", "float32", both, ref, shape)
+            b_ms, b_by = bound(y.numel() * 8 + halo.numel() * 8 + 12,
+                               13 * y.numel(), "float32")
+            rows.append(dict(
+                kernel="tv_bwd", dtype="float32", **tag, max_abs_err=err,
+                rel_err=rel, tol=tol,
+                **f64_check("tv_bwd", both, ref,
+                            torch.cat([pg64.reshape(-1), ph64.reshape(-1)]),
+                            shape),
+                bound_ms=b_ms, bound_by=b_by,
+                **timings(lambda: ktv.tv_bwd_cuda(y, g, means, h, halo),
+                          lambda: ktv.tv_bwd_plain(y, g, means, h, halo),
+                          None)))
+            emit(dict(phase="space", **rows[-1]))
+
+
+@contextlib.contextmanager
+def downscale_halo_grads_dropped():
+    """A planted fault: the block downscale's backward without the halo
+    rows' gradients, which it adds to the neighbouring blocks' edge rows
+    (ops/resize.py DownscaleBlocksFn); its forward is untouched."""
+    import torch
+
+    from artstyletransfer_tpu_torch.ops import resize
+
+    real = resize.DownscaleBlocksFn.backward
+
+    def backward(ctx, *gouts):
+        grads = list(real(ctx, *gouts))
+        n = len(grads)
+        for k, (g, (r_h, r_w)) in enumerate(zip(gouts, ctx.mats)):
+            e = torch.einsum("iy,bixc->byxc", r_h,
+                             torch.einsum("jx,bijc->bixc", r_w, g))
+            if k > 0:
+                grads[k - 1][:, -1:] -= e[:, :1].to(grads[k - 1].device)
+            if k + 1 < n:
+                grads[k + 1][:, :1] -= e[:, -1:].to(grads[k + 1].device)
+        return tuple(grads)
+
+    with mock.patch.object(resize.DownscaleBlocksFn, "backward",
+                           staticmethod(backward)):
+        yield
+
+
+def downscale_rows(gen, count):
+    """The block downscale (ops/resize.py downscale2x_blocks) at every
+    block shape of the 2048 px 4-level job over SEAM_AXES, its blocks on
+    the first S cards where S are visible, else on cuda:0 S times: the
+    output and the input gradient of a seeded cotangent, blocks joined,
+    against downscale2x of the whole image on cuda:0, each within
+    SPACE_GATE["downscale_rel"] of its largest entry (the CPU test's
+    bound); with the halo gradients dropped the gradient must fail it."""
+    import torch
+
+    from artstyletransfer_tpu_torch.ops.resize import (downscale2x,
+                                                       downscale2x_blocks)
+
+    card = torch.device("cuda:0")
+    tol = SPACE_GATE["downscale_rel"]
+    out = []
+    for n in SEAM_AXES:
+        devs = [torch.device(f"cuda:{i}" if count >= n else "cuda:0")
+                for i in range(n)]
+        for h in (LARGE_HW >> lvl for lvl in range(LARGE["levels_num"] - 1)):
+            x = torch.randn((1, h, h, 3), generator=gen, device=card) * 50
+            cot = torch.randn((1, h // 2, h // 2, 3), generator=gen,
+                              device=card)
+            xw = x.clone().requires_grad_(True)
+            whole = downscale2x(xw)
+            (gw,) = torch.autograd.grad(whole, xw, cot)
+
+            def blocks_fwd_bwd():
+                xb = [b.to(d).requires_grad_(True) for b, d in
+                      zip(torch.chunk(x, n, dim=1), devs)]
+                ob = downscale2x_blocks(xb)
+                gb = torch.autograd.grad(ob, xb, [
+                    c.to(d) for c, d in zip(torch.chunk(cot, n, dim=1),
+                                            devs)])
+                return (torch.cat([o.detach().to(card) for o in ob], 1),
+                        torch.cat([g.to(card) for g in gb], 1))
+
+            ob, gb = blocks_fwd_bwd()
+            with downscale_halo_grads_dropped():
+                _ob, gbad = blocks_fwd_bwd()
+
+            def rel(a, b):
+                return float((a - b).abs().max() / b.abs().max())
+
+            rec = dict(phase="space", op="downscale_blocks", seam=n,
+                       image=h, devices=[str(d) for d in devs],
+                       fwd_rel=rel(ob, whole.detach()),
+                       bwd_rel=rel(gb, gw), tol=tol,
+                       bwd_rel_halo_grads_dropped=rel(gbad, gw))
+            emit(rec)
+            out.append(rec)
+            if not (rec["fwd_rel"] <= tol and rec["bwd_rel"] <= tol
+                    and rec["bwd_rel_halo_grads_dropped"] > tol):
+                raise AssertionError(f"space downscale blocks: {rec}")
+    RECORD["space_downscale"] = out
+
+
+def space_meshes():
+    """[(what, mesh)]: the first two cards as one space row, and the first
+    four where four are visible; on one card the rehearsal, cuda:0 named
+    twice."""
+    import torch
+
+    from artstyletransfer_tpu_torch.parallel.mesh import Mesh, jobs_space_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return [("rehearsal, 1 card", Mesh(["cuda:0", "cuda:0"],
+                                           ("jobs", "space"), (1, 2)))]
+    out = [("2 cards", jobs_space_mesh(1, 2))]
+    if count >= 4:
+        out.append(("4 cards", jobs_space_mesh(1, 4)))
+    return out
+
+
+def row_cards(mesh):
+    return list(dict.fromkeys(mesh.devices))
+
+
+def reset_peaks(cards):
+    import torch
+
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def card_peaks(cards):
+    """{card: peak allocated GB since reset_peaks}."""
+    import torch
+
+    for d in cards:
+        torch.cuda.synchronize(d)
+    return {str(d): gb(torch.cuda.max_memory_allocated(d)) for d in cards}
+
+
+def space_run(job, cards):
+    """job.run() without images, one step a chunk: (the losses of each
+    step, ms of each step on the host's clock with every card of `cards`
+    synchronised, the final images, launches in total and per card), the
+    counters zeroed just before and read just after."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import (LAUNCHES,
+                                                     device_launches,
+                                                     reset_launches)
+
+    for d in cards:
+        torch.cuda.synchronize(d)
+    losses, ms = [], []
+    reset_launches()  # ---- this run of the path starts here ----
+    t0 = time.perf_counter()
+    for _done, imgs, f in job.run(yield_images=False):
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t1 = time.perf_counter()
+        ms.append((t1 - t0) * 1e3)
+        t0 = t1
+        losses.append(np.asarray(f.cpu() if torch.is_tensor(f) else f,
+                                 np.float64)[0])
+    launches, cards_l = dict(LAUNCHES), device_launches()  # ---- ends ----
+    return losses, ms, imgs[0], launches, cards_l
+
+
+def space_launches(mesh, cards_l, path):
+    """The Gram and TV kernels both ways on every card of the row."""
+    out = {}
+    for d in row_cards(mesh):
+        c = cards_l.get(d.index, {})
+        out[str(d)] = {k: c.get(k, 0) for k in ON_EVERY_CARD + ("conv_relu",)}
+        missing = [k for k in ON_EVERY_CARD if not c.get(k)]
+        if missing:
+            raise AssertionError(f"space {path}: {d} launched none of "
+                                 f"{missing} ({c})")
+    return out
+
+
+def host_syncs(fn):
+    """Host runtime calls of fn() that wait for the device (SYNC_CALLS),
+    and its CUDA copies (torch.profiler, CPU and CUDA activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    syncs, copies = {}, 0
+    for evt in prof.key_averages():
+        if evt.key.startswith(SYNC_CALLS) and not evt.key.startswith(
+                "cudaMemcpyAsync"):
+            syncs[evt.key] = syncs.get(evt.key, 0) + evt.count
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.key.startswith("Memcpy")):
+            copies += evt.count
+    return syncs, copies
+
+
+def ulp_control(job, x0, g0):
+    """The gradient's sensitivity to last bits: the relative L2 distance
+    of job's gradient at x0 moved by about one ulp per pixel (-1, 0 or +1
+    times 2^-23 |x|, seeded) from g0, its gradient at x0."""
+    import numpy as np
+    import torch
+
+    r = torch.from_numpy(np.random.default_rng(0).integers(
+        -1, 2, tuple(x0.shape)).astype(np.float32)).to(x0.device)
+    _f, g = job._loss_grad(x0 + r * x0.abs() * 2.0 ** -23)
+    g, g0 = g.cpu().double(), g0.double()
+    return float((g - g0).norm() / g0.norm())
+
+
+def space_references(params):
+    """The unsharded job on cuda:0: the first evaluation of the Adam
+    lane (and its gradient at an input one ulp away, ulp_control), the
+    first evaluation of its top level alone, its 5 eager steps and 5
+    graphed ones, and the unit L-BFGS lane's first evaluation and 2 eager
+    steps, each with its peak."""
+    import torch
+
+    from artstyletransfer_tpu_torch.config import (Config, precision_gate,
+                                                    production_config)
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+
+    card = torch.device("cuda:0")
+    out = {}
+    adam = Config(**SPACE_ADAM)
+    contents, style, inits, _ = large_inputs(1, adam)
+    for graphed in (False, True):
+        free_card()
+        job = BatchedTransferJob(contents, [style], adam, params=params,
+                                 device=card, init_overrides=inits,
+                                 graphs=graphed)
+        if not graphed:
+            with precision_gate(adam.conv_precision):
+                f, g = job._loss_grad(job._x0)
+                out["first"] = (f.cpu(), g.cpu())
+                out["control"] = ulp_control(job, job._x0, out["first"][1])
+        reset_peaks([card])
+        losses, ms, img, _l, _c = space_run(job, [card])
+        out["graphed" if graphed else "eager"] = dict(
+            losses=losses, ms=ms, img=img, peak_gb=card_peaks([card]))
+        del job
+    free_card()
+    top = Config(**SPACE_TOP)
+    job = BatchedTransferJob(contents, [style], top, params=params,
+                             device=card, init_overrides=inits, graphs=False)
+    with precision_gate(top.conv_precision):
+        f, g = job._loss_grad(job._x0)
+        out["top"] = (f.cpu(), g.cpu())
+    del job
+    lbfgs = production_config(Config(**SPACE_LBFGS), "cuda")
+    free_card()
+    job = BatchedTransferJob(contents, [style], lbfgs, params=params,
+                             device=card, init_overrides=inits, graphs=False)
+    first = float(job.initial_losses()[0])
+    reset_peaks([card])
+    losses, ms, img, _l, _c = space_run(job, [card])
+    out["lbfgs"] = dict(first=first, losses=losses, ms=ms, img=img,
+                        peak_gb=card_peaks([card]))
+    del job
+    free_card()
+    return out
+
+
+@contextlib.contextmanager
+def lbfgs_optimizers():
+    """The L-BFGS optimizers built while active (their state's history
+    blocks are read after a run)."""
+    from artstyletransfer_tpu_torch.engine import transfer
+
+    made = []
+    real = transfer._Lbfgs.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        made.append(self)
+
+    with mock.patch.object(transfer._Lbfgs, "__init__", init):
+        yield made
+
+
+def first_eval(job, ref):
+    """(loss rtol, gradient relative L2, whether a rerun gave the same
+    bits) of job's first evaluation against ref, the unsharded one's."""
+    import torch
+
+    from artstyletransfer_tpu_torch.config import precision_gate
+
+    with precision_gate(job.cfg.conv_precision):
+        f1, g1 = job._loss_grad(job._x0)
+        f2, g2 = job._loss_grad(job._x0)
+    g1, g2 = g1.cpu(), g2.cpu()
+    f0, g0 = ref
+    return (float((f1.cpu().double() / f0.double() - 1).abs().max()),
+            float((g1.double() - g0.double()).norm() / g0.double().norm()),
+            bool(torch.equal(f1, f2) and torch.equal(g1, g2)))
+
+
+def space_lanes(what, mesh, params, refs):
+    """The 2048 px Adam lane and the unit L-BFGS lane on a space row
+    against the unsharded references; returns the paths' launches.
+
+    The first evaluation's gradient is held to rtol 1e-4 where both sides
+    take the same input bits: the top level alone (SPACE_TOP). Over the
+    four levels the block downscale's products sum in another order than
+    the whole image's, and the lower levels' inputs differ in their last
+    bits; the gradient through VGG19's ReLUs and max-pools moves further
+    with them than 1e-4, as much as the unsharded job's own gradient
+    moves at an input one ulp away (ulp_control). That gradient is held
+    to twice its control, the loss to rtol 1e-4; the block downscale,
+    where the orders differ, is held on its own to 1e-5 (downscale_rows),
+    and with its halo gradients dropped the 4-level gradient must fail
+    the gate (a planted fault, the loss left bit-equal). The Adam losses
+    move each step the way the unsharded run's do (its fifth step rises:
+    lr overshoot), within rtol 1e-3."""
+    import numpy as np
+    import torch
+
+    from artstyletransfer_tpu_torch.config import (Config, precision_gate,
+                                                    production_config)
+    from artstyletransfer_tpu_torch.engine.transfer import lbfgs_history_gb
+    from artstyletransfer_tpu_torch.parallel import BatchedTransferJob
+    from artstyletransfer_tpu_torch.parallel.memory import memory_stats
+
+    cards = row_cards(mesh)
+    n = mesh.shape["space"]
+    paths = {}
+    adam = Config(**SPACE_ADAM)
+    contents, style, inits, _ = large_inputs(1, adam)
+    free_card()
+    t0 = time.perf_counter()
+    job = BatchedTransferJob(contents, [style], adam, params=params,
+                             mesh=mesh, shard_space=True,
+                             init_overrides=inits)
+    construct_s = time.perf_counter() - t0
+    if job.space is None:
+        raise AssertionError(f"space {what}: the 2048 px job did not shard")
+    loss_rel, grad_rel, rerun_bits = first_eval(job, refs["first"])
+    with downscale_halo_grads_dropped():
+        fault_loss, fault_grad, _bits = first_eval(job, refs["first"])
+    with precision_gate(adam.conv_precision):
+        syncs, copies = host_syncs(lambda: job._loss_grad(job._x0))
+    top = BatchedTransferJob(contents, [style], Config(**SPACE_TOP),
+                             params=params, mesh=mesh, shard_space=True,
+                             init_overrides=inits)
+    top_loss, top_grad, top_bits = first_eval(top, refs["top"])
+    del top
+    reset_peaks(cards)
+    losses, ms, img, launches, per = space_run(job, cards)
+    peaks = card_peaks(cards)
+    paths["space_adam"] = launches
+    one = refs["eager"]
+    rel = [abs(a / b - 1) for a, b in zip(losses, one["losses"])]
+    rec = dict(phase="space", run="adam_2048", mesh=what,
+               devices=[str(d) for d in job.space],
+               construct_s=construct_s,
+               first_eval=dict(loss_rel=loss_rel, grad_rel_l2=grad_rel,
+                               grad_rel_l2_one_ulp_control=refs["control"],
+                               rerun_bit_equal=rerun_bits,
+                               downscale_halo_grads_dropped=dict(
+                                   loss_rel=fault_loss,
+                                   grad_rel_l2=fault_grad)),
+               first_eval_top_level=dict(loss_rel=top_loss,
+                                         grad_rel_l2=top_grad,
+                                         rerun_bit_equal=top_bits),
+               host_syncs_per_eval=syncs, device_copies_per_eval=copies,
+               losses=losses, unsharded_losses=one["losses"], loss_rel=rel,
+               psnr_db_vs_unsharded=psnr(img, one["img"]),
+               ms_per_step_space_eager=ms,
+               ms_per_step_unsharded_eager=one["ms"],
+               ms_per_step_unsharded_graphed=refs["graphed"]["ms"],
+               peak_gb_per_card=peaks,
+               unsharded_peak_gb=one["peak_gb"],
+               launches_per_card=space_launches(mesh, per, "adam"))
+    emit(rec)
+    RECORD.setdefault("space", []).append(rec)
+    if not (loss_rel <= SPACE_GATE["loss_rtol"] and rerun_bits
+            and grad_rel <= SPACE_GATE["grad_rel_of_control"]
+            * refs["control"]
+            and fault_grad > SPACE_GATE["grad_rel_of_control"]
+            * refs["control"]
+            and top_loss <= SPACE_GATE["loss_rtol"] and top_bits
+            and top_grad <= SPACE_GATE["grad_rel"]
+            and np.isfinite(losses).all() and losses[-1] < losses[0]
+            and np.array_equal(np.sign(np.diff(losses)),
+                               np.sign(np.diff(one["losses"])))
+            and max(rel) <= SPACE_GATE["adam_rtol"]):
+        raise AssertionError(f"space adam {what}: {rec}")
+    del job
+    stats = memory_stats(adam, (LARGE_HW, LARGE_HW), 1, mesh=mesh,
+                         shard_space=True)
+    emit(dict(phase="space", run="memory_stats_adam", mesh=what,
+              **space_stats(stats), measured_peak_gb_per_card=peaks))
+
+    lbfgs = production_config(Config(**SPACE_LBFGS), "cuda")
+    free_card()
+    job = BatchedTransferJob(contents, [style], lbfgs, params=params,
+                             mesh=mesh, shard_space=True,
+                             init_overrides=inits)
+    first = float(job.initial_losses()[0])
+    reset_peaks(cards)
+    with lbfgs_optimizers() as made:
+        losses, ms, img, launches, per = space_run(job, cards)
+    peaks = card_peaks(cards)
+    paths["space_lbfgs"] = launches
+    hist = made[-1].state.s_hist.blocks, made[-1].state.y_hist.blocks
+    one = refs["lbfgs"]
+    rec = dict(phase="space", run="lbfgs_unit_2048", mesh=what,
+               lbfgs_grams=lbfgs.lbfgs_grams,
+               first_eval_loss_rel=abs(first / one["first"] - 1),
+               losses=losses, unsharded_losses=one["losses"],
+               psnr_db_vs_unsharded=psnr(img, one["img"]),
+               ms_per_step_space_eager=ms,
+               ms_per_step_unsharded_eager=one["ms"],
+               history_gb_per_shard=[gb(s.numel() * s.element_size()
+                                        + y.numel() * y.element_size())
+                                     for s, y in zip(*hist)],
+               history_gb_formula=lbfgs_history_gb(
+                   lbfgs, job.level_shapes, 1, n),
+               peak_gb_per_card=peaks, unsharded_peak_gb=one["peak_gb"],
+               launches_per_card=space_launches(mesh, per, "lbfgs"))
+    emit(rec)
+    RECORD.setdefault("space", []).append(rec)
+    del job, made, hist
+    if not (rec["first_eval_loss_rel"] <= SPACE_GATE["loss_rtol"]
+            and np.isfinite(losses).all() and losses[-1] < first):
+        raise AssertionError(f"space lbfgs {what}: {rec}")
+    free_card()
+    stats = memory_stats(lbfgs, (LARGE_HW, LARGE_HW), 1, mesh=mesh,
+                         shard_space=True)
+    emit(dict(phase="space", run="memory_stats_lbfgs", mesh=what,
+              **space_stats(stats), measured_peak_gb_per_card=peaks))
+    free_card()
+    return paths
+
+
+def space_stats(stats):
+    """memory_stats' space report in GB."""
+    return dict(
+        predicted_gb=gb(stats["predicted_bytes"]),
+        per_shard=[dict(device=s["device"],
+                        **{k.replace("_bytes", "_gb"): gb(v)
+                           for k, v in s.items() if k.endswith("_bytes")})
+                   for s in stats["per_shard"]],
+        per_card=[dict(device=c["device"], peak_gb=gb(c["peak_bytes"]),
+                       allocated_before_gb=gb(c["allocated_before_bytes"]))
+                  for c in stats.get("per_card", [])])
+
+
+def phase_space():
+    """One job's pixels over the cards of a space row (see the module
+    docstring). Returns (the paths' launches, the seam kernel rows)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.config import precision_gate
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+
+    t0 = time.time()
+    smi = cards_smi()
+    count = torch.cuda.device_count()
+    meshes = space_meshes()
+    emit({"space": [what for what, _m in meshes]})
+    emit({"phase": "space", "cards": count, "smi": smi,
+          "peer_access": {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+                          for a in range(min(count, 4))
+                          for b in range(min(count, 4)) if a != b}})
+    rows = []
+    seam_rows(torch.Generator(device="cuda").manual_seed(14), rows)
+    with precision_gate("highest"):
+        downscale_rows(torch.Generator(device="cuda").manual_seed(15), count)
+    params = init_vgg19_params(seed=0)
+    refs = space_references(params)
+    paths = {}
+    for what, mesh in meshes:
+        for name, launches in space_lanes(what, mesh, params, refs).items():
+            paths[f"{name}_{mesh.shape['space']}"] = launches
+    emit({"phase": "space", "wall_s": time.time() - t0})
+    for name, launches in paths.items():
+        check_launches(name, launches)
+    return paths, rows
+
+
 def main() -> int:
     import torch
 
@@ -3588,7 +4194,9 @@ def main() -> int:
     paths.update(phase_lookahead())
     paths.update(phase_builders())
     paths.update(phase_mesh())
-    summary = kernel_summary(rows, paths)
+    space_paths, seam = phase_space()
+    paths.update(space_paths)
+    summary = kernel_summary(rows + seam, paths)
     RECORD["summary"] = summary
     RECORD["gpu"] = smi
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -383,10 +383,11 @@ def test_batch_rejects_mixed_shapes_and_unported_options(jobs_data,
         pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
                                   params=vgg_params, device="cpu",
                                   mesh=object())
-    with pytest.raises(NotImplementedError, match="space sharding"):
-        pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
-                                  params=vgg_params, device="cpu",
-                                  shard_space=True)
+    # shard_space without a mesh does nothing, as in the JAX package
+    alone = pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,
+                                      params=vgg_params, device="cpu",
+                                      shard_space=True)
+    assert alone.space is None and alone.shards is None
     # a jobs mesh runs: one job padded to a lane per shard
     mesh = jobs_mesh(devices=["cpu", "cpu"])
     b = pbatch.BatchedTransferJob(contents[:1], styles[:1], cfg,

@@ -223,13 +223,16 @@ def test_memory_stats_argument_bytes(opt):
 
 
 def test_memory_stats_mesh_and_space_raise():
-    """A value that is not a mesh and space sharding raise; on a jobs mesh
-    the counts are one card's, for its share of the padded batch."""
+    """A value that is not a mesh raises; shard_space without a mesh does
+    nothing (the JAX package's rule; it raised before space sharding was
+    ported); on a jobs mesh the counts are one card's, for its share of
+    the padded batch."""
     cfg = Config(**BASE)
     with pytest.raises(TypeError, match="mesh"):
         pmemory.memory_stats(cfg, (32, 40), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="space sharding"):
-        pmemory.memory_stats(cfg, (32, 40), shard_space=True, device="cpu")
+    no_mesh = pmemory.memory_stats(cfg, (32, 40), shard_space=True,
+                                   device="cpu")
+    assert no_mesh == pmemory.memory_stats(cfg, (32, 40), device="cpu")
     mesh = jobs_mesh(devices=["cpu", "cpu"])
     on_mesh = pmemory.memory_stats(cfg, (32, 40), 3, mesh=mesh)
     one_card = pmemory.memory_stats(cfg, (32, 40), 2, device="cpu")

@@ -107,20 +107,23 @@ def test_nan_check_raises(params):
 
 
 def test_unported_options_raise(params):
-    """Space sharding is not ported and raises, and so does a mesh that
-    is not a parallel.mesh.Mesh; a jobs mesh runs (tests/
-    test_torch_mesh.py; remat_levels: tests/test_torch_remat.py)."""
+    """A mesh that is not a parallel.mesh.Mesh raises; shard_space
+    without a mesh does nothing, as in the JAX package (it raised before
+    space sharding was ported: tests/test_torch_space.py); a jobs mesh
+    runs (tests/test_torch_mesh.py; remat_levels: tests/
+    test_torch_remat.py)."""
     from artstyletransfer_tpu_torch.parallel.batch import BatchedTransferJob
     from artstyletransfer_tpu_torch.parallel.mesh import jobs_mesh
 
     rng = np.random.default_rng(3)
     content = rng.random((20, 24, 3)).astype(np.float32)
     cfg = Config(levels_num=1, base_diameter=16, iters_num=1)
-    for kw, error in ((dict(mesh=object()), TypeError),
-                      (dict(shard_space=True), NotImplementedError)):
-        with pytest.raises(error):
-            BatchedTransferJob([content], [content], cfg, params=params,
-                               device="cpu", **kw)
+    with pytest.raises(TypeError):
+        BatchedTransferJob([content], [content], cfg, params=params,
+                           device="cpu", mesh=object())
+    alone = BatchedTransferJob([content], [content], cfg, params=params,
+                               device="cpu", shard_space=True)
+    assert alone.space is None
     mesh = jobs_mesh(devices=["cpu", "cpu"])
     _d, imgs, _l = list(BatchedTransferJob([content] * 2, [content] * 2, cfg,
                                            params=params, mesh=mesh).run())[-1]
