@@ -54,6 +54,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.metrics import span
+
 # Wolfe constants and tolerances (torch's values).
 _C1 = 1e-4
 _C2 = 0.9
@@ -68,6 +70,16 @@ _f32 = np.float32
 # also have along(x, t, d), the same at x + t d, which a graphed
 # evaluation writes straight into its static input.
 LossGradFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """t on the host: one blocking device->host read (an lbfgs.read
+    span; ended by hand, not entered: nothing runs inside it, and the
+    innermost-span variable is the larger part of a span's cost)."""
+    read = span("lbfgs.read")
+    host = t.cpu().numpy()
+    read.end()
+    return host
 
 
 def _eval_along(loss_grad: LossGradFn, x: torch.Tensor, t: torch.Tensor,
@@ -516,12 +528,12 @@ def _lane_two_loop_direction(g: torch.Tensor, state: LaneLbfgsState,
         P = _hist_gram(S, Y)                                   # S Yᵀ
         Q = _hist_gram(Y, Y)                                   # Y Yᵀ
     g_h = g.to(S.dtype)
-    host = torch.cat([
+    host = _read(torch.cat([
         P.reshape(nb, k * k), Q.reshape(nb, k * k),
         _rows_dot(S, g_h),                                     # S g
         _rows_dot(Y, g_h),                                     # Y g
-    ], dim=1).cpu().numpy()
-    rho = state.rho.cpu().numpy()
+    ], dim=1))
+    rho = _read(state.rho)
     P = np.zeros((m, m), _f32)
     Q = np.zeros((m, m), _f32)
     u = np.zeros((m,), _f32)
@@ -552,7 +564,7 @@ def _lane_strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor,
     evaluates every lane at once (lanes not searching sit at t = 0, their
     values unread) and sends each searching lane its own (f, g, g.d).
     Returns {lane: (t, f_t, g_t, n_evals)}."""
-    d_norm = d.abs().amax(dim=1).cpu().numpy()
+    d_norm = _read(d.abs().amax(dim=1))
     t_now = np.zeros((x.shape[0],), _f32)
     searches = {}
     for b in lanes:
@@ -563,7 +575,7 @@ def _lane_strong_wolfe(loss_grad: LossGradFn, x: torch.Tensor,
     while searches:
         t_dev = torch.from_numpy(t_now.copy()).to(x.device).unsqueeze(1)
         f, g = _eval_along(loss_grad, x, t_dev, d)
-        fg = torch.stack([f.float(), (g * d).sum(dim=1)]).cpu().numpy()
+        fg = _read(torch.stack([f.float(), (g * d).sum(dim=1)]))
         for b in list(searches):
             try:
                 t_now[b] = searches[b].send((_f32(fg[0, b]), g[b],
@@ -590,50 +602,57 @@ def lane_lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor,
     if t_init not in ("lr", "unit"):
         raise ValueError(f"unknown lbfgs t_init {t_init!r}; "
                          "expected 'lr' or 'unit'")
-    nb, m = state.rho.shape
-    g0, f0 = state.g, state.f
-    lr = np.asarray(lr, _f32)
+    with span("lbfgs.step", lanes=state.rho.shape[0]) as step:
+        nb, m = state.rho.shape
+        g0, f0 = state.g, state.f
+        lr = np.asarray(lr, _f32)
 
-    d = _lane_two_loop_direction(g0, state, impl=direction_impl)
-    dphi0, g_l1 = torch.stack([(g0 * d).sum(dim=1),
-                               g0.abs().sum(dim=1)]).cpu().numpy()
-    dphi0 = dphi0.astype(_f32)
-    # torch breaks before the line search when the slope is not
-    # meaningfully negative: that lane's step is a no-op
-    skip = dphi0 > -_TOL_CHANGE
-    t0 = np.empty((nb,), _f32)
-    first = np.broadcast_to(np.asarray(state.n_iter) == 0, (nb,))
-    for b in range(nb):
-        if first[b]:
-            t0[b] = lr[b] * min(_f32(1.0),
-                                _f32(1.0) / max(_f32(g_l1[b]), _f32(1e-20)))
-        else:
-            t0[b] = lr[b]
-        if t_init == "unit" and state.count[b] > 0:
-            t0[b] = _f32(1.0)
-    found = _lane_strong_wolfe(loss_grad, x, d, f0, g0, dphi0, t0,
-                               max_ls_steps, np.flatnonzero(~skip).tolist())
-
-    t = np.zeros((nb,), _f32)
-    f_new = f0.copy()
-    g_rows = [g0[b] for b in range(nb)]
-    ls_evals = np.zeros((nb,), np.int64)
-    for b, (tb, fb, gb, nb_evals) in found.items():
-        t[b], f_new[b], g_rows[b], ls_evals[b] = tb, fb, gb, nb_evals
-    g_new = _stack_rows(g_rows)
-    s = torch.from_numpy(t).to(x.device).unsqueeze(1) * d
-    x_new = x + s
-    y = g_new - g0
-    ys_dev = (y * s).sum(dim=1)
-    ys = ys_dev.cpu().numpy()
-    # torch's curvature guard for the history update
-    store = np.flatnonzero((ys > 1e-10) & ~skip)
-    if store.size:
-        _store_pairs(state, store, s, y, ys, ys_dev)
-    state.f, state.g = f_new, g_new
-    state.n_evals += ls_evals
-    state.n_iter += 1
-    return x_new, state
+        with span("lbfgs.direction"):
+            d = _lane_two_loop_direction(g0, state, impl=direction_impl)
+        dphi0, g_l1 = _read(torch.stack([(g0 * d).sum(dim=1),
+                                         g0.abs().sum(dim=1)]))
+        dphi0 = dphi0.astype(_f32)
+        # torch breaks before the line search when the slope is not
+        # meaningfully negative: that lane's step is a no-op
+        skip = dphi0 > -_TOL_CHANGE
+        t0 = np.empty((nb,), _f32)
+        first = np.broadcast_to(np.asarray(state.n_iter) == 0, (nb,))
+        for b in range(nb):
+            if first[b]:
+                t0[b] = lr[b] * min(_f32(1.0), _f32(1.0)
+                                    / max(_f32(g_l1[b]), _f32(1e-20)))
+            else:
+                t0[b] = lr[b]
+            if t_init == "unit" and state.count[b] > 0:
+                t0[b] = _f32(1.0)
+        with span("lbfgs.search") as search:
+            found = _lane_strong_wolfe(loss_grad, x, d, f0, g0, dphi0, t0,
+                                       max_ls_steps,
+                                       np.flatnonzero(~skip).tolist())
+            t = np.zeros((nb,), _f32)
+            f_new = f0.copy()
+            g_rows = [g0[b] for b in range(nb)]
+            ls_evals = np.zeros((nb,), np.int64)
+            for b, (tb, fb, gb, nb_evals) in found.items():
+                t[b], f_new[b], g_rows[b], ls_evals[b] = tb, fb, gb, nb_evals
+            # a round evaluates every lane still searching, once
+            rounds = int(ls_evals.max())
+            search.set(rounds=rounds, evals=int(ls_evals.sum()))
+        g_new = _stack_rows(g_rows)
+        s = torch.from_numpy(t).to(x.device).unsqueeze(1) * d
+        x_new = x + s
+        y = g_new - g0
+        ys_dev = (y * s).sum(dim=1)
+        ys = _read(ys_dev)
+        # torch's curvature guard for the history update
+        store = np.flatnonzero((ys > 1e-10) & ~skip)
+        if store.size:
+            _store_pairs(state, store, s, y, ys, ys_dev)
+        state.f, state.g = f_new, g_new
+        state.n_evals += ls_evals
+        state.n_iter += 1
+        step.set(evals=rounds)
+        return x_new, state
 
 
 def _store_pairs(state: LaneLbfgsState, lanes: np.ndarray, s: torch.Tensor,

@@ -72,6 +72,7 @@ from ..ops.blocks import fan_out
 from ..ops.resize import downscale2x, downscale2x_blocks
 from ..utils.cache import BoundedCache
 from ..utils.image import prepare_img, unprepare_img
+from ..utils.metrics import span
 from . import checkpoint as ckpt
 from . import graphs as graphs_mod
 from . import lbfgs as lbfgs_mod
@@ -374,8 +375,9 @@ def eval_graph(job, targets, x: torch.Tensor) -> graphs_mod.EvalGraph:
                 "settings were current")
         capture = (graphs_mod.cuda_capture if job.device.type == "cuda"
                    else graphs_mod.eager_capture)
-        entry = graphs_mod.EvalGraph(_eval_body(job._loss_fn, job.params),
-                                     x, targets, capture)
+        with span("graph.capture", lanes=x.shape[0]):
+            entry = graphs_mod.EvalGraph(
+                _eval_body(job._loss_fn, job.params), x, targets, capture)
         _COMPILE_CACHE[key] = entry
         return entry
 
@@ -401,15 +403,17 @@ class LossGrad:
         return self._graph
 
     def __call__(self, x: torch.Tensor):
-        if not self._graphed:
-            return _eval_body(self._job._loss_fn, self._job.params)(
-                self._targets, x)
-        return self._entry(x)(self._owner, self._targets, x)
+        with span("engine.eval", lanes=x.shape[0]):
+            if not self._graphed:
+                return _eval_body(self._job._loss_fn, self._job.params)(
+                    self._targets, x)
+            return self._entry(x)(self._owner, self._targets, x)
 
     def along(self, x: torch.Tensor, t: torch.Tensor, d: torch.Tensor):
         if not self._graphed:
             return self(x.addcmul(t, d))
-        return self._entry(x)(self._owner, self._targets, x, t, d)
+        with span("engine.eval", lanes=x.shape[0]):
+            return self._entry(x)(self._owner, self._targets, x, t, d)
 
 
 def use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
@@ -672,8 +676,9 @@ class HostCopies:
             events[-1].record(torch.cuda.current_stream(dev))
 
         def fetch():
-            for copied in events:
-                copied.synchronize()
+            with span("engine.fetch"):
+                for copied in events:
+                    copied.synchronize()
             return regroup(bufs)
 
         return fetch
@@ -818,16 +823,18 @@ class TransferJob:
         copies = HostCopies()
 
         def materialize(done_k, x_k, f_k):
-            f_k = float(f_k)
-            if cfg.nan_checks and not np.isfinite(f_k):
-                _raise_nonfinite(f_k, done_k, cfg)
-            return done_k, self._image(x_k), f_k
+            with span("engine.materialize"):
+                f_k = float(f_k)
+                if cfg.nan_checks and not np.isfinite(f_k):
+                    _raise_nonfinite(f_k, done_k, cfg)
+                return done_k, self._image(x_k), f_k
 
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
                 k = min(chunk, iters - done)
-                for i in range(k):
-                    x, f = opt.step(x, done + i)
+                with span("engine.chunk", steps=k):
+                    for i in range(k):
+                        x, f = opt.step(x, done + i)
                 f = f[0]  # the one lane's loss, as a 0-d tensor
                 done += k
                 converged = False
@@ -856,7 +863,8 @@ class TransferJob:
                                if check_stop else None))
                     last_saved = done
                 if sync:
-                    img = self._image(x)
+                    with span("engine.materialize"):
+                        img = self._image(x)
                     if report_level_losses:
                         _total, self.last_level_losses = self._metrics(x)
             if lookahead:

@@ -156,7 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append per-progress JSONL metrics to PATH")
     p.add_argument("--profile-trace", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run "
-                        "to DIR")
+                        "(trace.json) and the spans recorded meanwhile "
+                        "(spans.jsonl) to DIR")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file; combine with --checkpoint-every "
                         "and --resume")
@@ -224,22 +225,18 @@ def run_job_checkpointed(args: argparse.Namespace,
     """TransferJob without the Executor: the path for --checkpoint (and
     --verbose-losses, which prints per-level losses)."""
     from ..engine.transfer import TransferJob
-    from ..utils.metrics import MetricsLogger, Throughput
+    from ..utils.metrics import MetricsLogger
 
     job = TransferJob(load_image(args.content), load_image(args.style),
                       cfg, params=_load_params(args), device=args.device)
     img = None
     with MetricsLogger(args.metrics) as metrics:
-        tp = Throughput()
-        tp.tick(0)
         for done, img, loss in job.run(
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every or cfg.stream_every,
                 resume=args.resume,
                 report_level_losses=args.verbose_losses):
-            sps = tp.tick(done)
             metrics.log("chunk", step=done, loss=float(loss),
-                        steps_per_sec=round(sps, 4) if sps else None,
                         percent=done / cfg.iters_num * 100.0)
             if not args.quiet:
                 print(f"step {done}/{cfg.iters_num} loss {loss:.4e}")

@@ -59,7 +59,8 @@ import sys
 import time
 from collections import defaultdict
 from functools import partial
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -79,6 +80,7 @@ from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, HostCopies,
 from ..models.weights import shared_params
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
+from ..utils.metrics import span
 from .mesh import check_mesh, jobs_axis, placement
 from .shards import (Lanes, ShardedOpt, gather_lanes, run_on_shards,
                      shard_bounds, split_rows)
@@ -184,6 +186,8 @@ class BatchedTransferJob:
                  init_overrides: Optional[Sequence[np.ndarray]] = None,
                  pad_batch_to: Optional[int] = None, device=None,
                  graphs: Optional[bool] = None):
+        # a job's set-up: from here through run()'s init_opt
+        self._setup = span("queue.job_setup")
         if len(contents) != len(styles) or not contents:
             raise ValueError("need one style per content and at least one "
                              "job")
@@ -590,13 +594,15 @@ class BatchedTransferJob:
             return out
 
         def materialize(done_k, x_k, f_k):
-            rows = x_k.cpu().numpy().reshape((len(lane_orig),) + top[1:])
-            lanes = lane_of()
-            imgs_k = np.stack([
-                unprepare_img(finished[orig][0] if orig in finished
-                              else rows[lanes[orig]])
-                for orig in range(self.real_batch)])
-            losses_k = compose_losses(f_k.cpu().numpy())
+            with span("engine.materialize"):
+                rows = x_k.cpu().numpy().reshape(
+                    (len(lane_orig),) + top[1:])
+                lanes = lane_of()
+                imgs_k = np.stack([
+                    unprepare_img(finished[orig][0] if orig in finished
+                                  else rows[lanes[orig]])
+                    for orig in range(self.real_batch)])
+                losses_k = compose_losses(f_k.cpu().numpy())
             if cfg.nan_checks and not np.isfinite(losses_k).all():
                 bad = np.flatnonzero(~np.isfinite(losses_k)).tolist()
                 _raise_nonfinite_batch(bad, done_k, self.real_batch, cfg)
@@ -645,7 +651,8 @@ class BatchedTransferJob:
                 # losses at them beside the frozen jobs' own
                 yield materialize(done, x, self._losses_at(x, targets))
                 return
-        opt = self.init_opt(x, leaves, targets)
+        with self._setup:
+            opt = self.init_opt(x, leaves, targets)
         last_saved = done
         lookahead = yield_images and async_steps(cfg) and not check_stop
         copies = HostCopies()
@@ -653,7 +660,8 @@ class BatchedTransferJob:
         while done < iters:
             with precision_gate(cfg.conv_precision):  # released at the yield
                 k = min(chunk, iters - done)
-                x, f = self._steps(x, opt, done, k)
+                with span("engine.chunk", steps=k):
+                    x, f = self._steps(x, opt, done, k)
                 done += k
                 converged = False
                 f_np = None
@@ -908,6 +916,7 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
                   retries: int = 0,
                   retry_delay_s: float = 25.0,
                   device=None,
+                  on_start: Optional[Callable[[List[str]], None]] = None,
                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, Exception]]:
     """Run an arbitrary job queue: bucket by shape, batch each bucket in
     lanes, stream progress.
@@ -927,7 +936,8 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     the per-chunk image copy (progress then receives images=None except
     for the final chunk). retries re-runs a failed group up to that many
     extra times after retry_delay_s. progress(task_id, percent, image,
-    loss) is called per job and chunk. Runs on CUDA unless device='cpu'.
+    loss) is called per job and chunk, and on_start(task_ids) as each
+    group starts. Runs on CUDA unless device='cpu'.
 
     checkpoint_dir: each group checkpoints its whole batch every
     checkpoint_every steps (default stream_every) to
@@ -983,6 +993,8 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
         groups = [bucket[i:i + cap] for i in range(0, len(bucket), cap)]
         for group in groups:
             ids = [j[0] for j in group]
+            if on_start is not None:
+                on_start(ids)
             # a sequential group of one job is not padded over the jobs
             # axis (A - 1 replicas, and the lockstep the routing avoids)
             group_mesh = mesh if (policy != "sequential"
@@ -1010,48 +1022,56 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
                           f" retry {attempt}/{retries} in "
                           f"{retry_delay_s:.0f}s", file=sys.stderr)
                     time.sleep(retry_delay_s)
-                try:
-                    batch = BatchedTransferJob(
-                        [j[1] for j in group], [j[2] for j in group], cfg,
-                        params=params, mesh=group_mesh,
-                        shard_space=shard_space and group_mesh is not None,
-                        pad_batch_to=pad_to, device=group_dev)
-                    imgs = None
-                    for done, imgs, losses in batch.run(
-                            yield_images=stream_images,
-                            checkpoint_path=ckpt_path,
-                            checkpoint_every=checkpoint_every,
-                            # a retry resumes from the last save
-                            resume=resume or attempt > 0):
-                        if progress is not None:
-                            pct = done / cfg.iters_num * 100.0
-                            # one device->host read for the whole batch
-                            losses = np.asarray(
-                                losses.cpu() if torch.is_tensor(losses)
-                                else losses)
+                with span("queue.group", task=tuple(ids), lanes=0,
+                          pad_lanes=0, attempt=attempt) as attempt_span:
+                    try:
+                        batch = BatchedTransferJob(
+                            [j[1] for j in group], [j[2] for j in group],
+                            cfg, params=params, mesh=group_mesh,
+                            shard_space=(shard_space
+                                         and group_mesh is not None),
+                            pad_batch_to=pad_to, device=group_dev)
+                        attempt_span.set(
+                            lanes=batch.batch,
+                            pad_lanes=batch.batch - batch.real_batch)
+                        imgs = None
+                        for done, imgs, losses in batch.run(
+                                yield_images=stream_images,
+                                checkpoint_path=ckpt_path,
+                                checkpoint_every=checkpoint_every,
+                                # a retry resumes from the last save
+                                resume=resume or attempt > 0):
+                            if progress is not None:
+                                pct = done / cfg.iters_num * 100.0
+                                # one device->host read for the batch
+                                losses = np.asarray(
+                                    losses.cpu() if torch.is_tensor(losses)
+                                    else losses)
+                                for i, tid in enumerate(ids):
+                                    progress(tid, pct,
+                                             imgs[i] if imgs is not None
+                                             else None,
+                                             float(losses[i]))
+                        if imgs is None:
+                            raise RuntimeError(
+                                f"batch of {len(ids)} job(s) yielded no "
+                                f"chunks (iters_num={cfg.iters_num})")
+                        if (progress is not None and cfg.stop_tol > 0.0
+                                and done < cfg.iters_num):
+                            # an early stop ended the group below the
+                            # budget; consumers key completion on
+                            # percent >= 100
                             for i, tid in enumerate(ids):
-                                progress(tid, pct,
-                                         imgs[i] if imgs is not None
-                                         else None,
+                                progress(tid, 100.0, imgs[i],
                                          float(losses[i]))
-                    if imgs is None:
-                        raise RuntimeError(
-                            f"batch of {len(ids)} job(s) yielded no chunks "
-                            f"(iters_num={cfg.iters_num})")
-                    if (progress is not None and cfg.stop_tol > 0.0
-                            and done < cfg.iters_num):
-                        # an early stop ended the group below the budget;
-                        # consumers key completion on percent >= 100
                         for i, tid in enumerate(ids):
-                            progress(tid, 100.0, imgs[i], float(losses[i]))
-                    for i, tid in enumerate(ids):
-                        results[tid] = imgs[i]
-                    last_exc = None
-                    break
-                except Exception as e:  # noqa: BLE001 — group isolation
-                    # one bad group (e.g. out of memory at an extreme
-                    # shape) must not kill the rest of the queue
-                    last_exc = e
+                            results[tid] = imgs[i]
+                        last_exc = None
+                        break
+                    except Exception as e:  # noqa: BLE001 — group isolation
+                        # one bad group (e.g. out of memory at an extreme
+                        # shape) must not kill the rest of the queue
+                        last_exc = e
             if last_exc is not None:
                 for tid in ids:
                     failures[tid] = last_exc

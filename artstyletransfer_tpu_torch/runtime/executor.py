@@ -204,7 +204,6 @@ class Executor:
         # events (in place of the reference's per-iteration prints,
         # reference neural_style_transfer.py:159,189,196)
         self.metrics = metrics
-        self.__throughput: Dict[str, object] = {}
 
     async def get_progress(self, key):
         async with self.__progress_lock:
@@ -243,20 +242,8 @@ class Executor:
         if self.metrics is None:
             return
         fields = {"task": task_id}
-        if event == "task_added":
-            from ..utils.metrics import Throughput
-
-            # baseline tick at step 0: the first progress interval (the
-            # compile-bearing chunk) then becomes Throughput's skipped one
-            self.__throughput[task_id] = Throughput()
-            self.__throughput[task_id].tick(0)
         if percent is not None and percent >= 0:
             fields["percent"] = percent
-            tp = self.__throughput.get(task_id)
-            if tp is not None:
-                sps = tp.tick(percent / 100.0 * self.__config.iters_num)
-                if sps is not None:
-                    fields["steps_per_sec"] = round(sps, 4)
         self.metrics.log(event, **fields)
 
     async def __report(self, task_id, result):
@@ -275,7 +262,6 @@ class Executor:
                 if self.__verbose:
                     print(f"Task {task_id} done")
                 self._log_metric("task_done", task_id)
-            self.__throughput.pop(task_id, None)
             self.__tasks.pop(task_id)
         if error is not None and self.__report_failure is not None:
             # outside the lock: the hook may take the frontend's own locks

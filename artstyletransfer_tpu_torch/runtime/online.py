@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..parallel.mesh import check_mesh, placement
+from ..utils.metrics import span
 from .executor import call_in_loop, prune_progress, record_failure
 
 
@@ -116,6 +117,10 @@ class OnlineBatchingExecutor:
         self.__delayed: Dict[asyncio.Task, list] = {}
         self.failures: Dict[str, BaseException] = {}
         self.dispatch_rounds = 0  # observability: rounds actually run
+        # the open 'online.job' span of every task queued or in flight,
+        # and the 'online.queued' span of every task not yet admitted
+        self._job_spans: Dict[str, span] = {}
+        self._queued_spans: Dict[str, span] = {}
 
     # -- progress table (same copy-on-read contract as Executor) ----------
 
@@ -155,6 +160,7 @@ class OnlineBatchingExecutor:
         """Queue a job; same-bucket jobs pending at dispatch time run as
         one batch. Canonicalization (aspect-bucket crop + resize) happens
         here so bucketing and the warmup shapes agree."""
+        job = span("online.job", task=task_id)
         content = np.asarray(content_n_style.content[1])
         style = np.asarray(content_n_style.style[1])
         if self.canonicalize:
@@ -172,6 +178,8 @@ class OnlineBatchingExecutor:
             self.metrics.log("task_added", task=task_id)
         async with self.__pending_lock:
             self.__pending.append((task_id, content, style))
+            self._job_spans[task_id] = job
+            self._queued_spans[task_id] = span("online.queued", parent=job)
         self._ensure_dispatcher()
         self.__idle.clear()
         self.__wake.set()
@@ -201,11 +209,14 @@ class OnlineBatchingExecutor:
 
     async def _dispatch_loop(self):
         while True:
-            await self.__wake.wait()
+            if not self.__wake.is_set():
+                with span("online.idle"):
+                    await self.__wake.wait()
             self.__wake.clear()
             # coalescing window: near-simultaneous requests join the round
             if self.batch_window_s > 0:
-                await asyncio.sleep(self.batch_window_s)
+                with span("online.coalesce"):
+                    await asyncio.sleep(self.batch_window_s)
             async with self.__pending_lock:
                 jobs, self.__pending = self.__pending, []
             if not jobs:
@@ -231,14 +242,25 @@ class OnlineBatchingExecutor:
                 # right after, and run() re-verifies under the lock
                 async with self.__pending_lock:
                     empty = not self.__pending
+                    waiting = {tid for tid, _c, _s in self.__pending}
+                waiting.update(tid for tasks in self.__delayed.values()
+                               for tid, _c, _s in tasks)
+                # a drive stopped from outside (a BaseException) delivered
+                # and failed nothing: its tasks' spans end with it
+                for tid in [t for t in self._job_spans if t not in waiting]:
+                    self._end_job(tid)
                 if empty and not self.__wake.is_set():
                     self.__idle.set()
 
     async def _run_round(self, jobs):
         from ..parallel.batch import run_job_queue
 
-        runner = self.queue_runner or run_job_queue
+        # a task leaves the queue when its own group starts; an injected
+        # runner reports no group start, so its tasks' waits end with them
+        runner = self.queue_runner or partial(run_job_queue,
+                                              on_start=self._admitted)
         loop = asyncio.get_running_loop()
+        tids = tuple(tid for tid, _c, _s in jobs)
         self.dispatch_rounds += 1
         if self.__verbose:
             print(f"online batch round: {len(jobs)} job(s)")
@@ -252,18 +274,24 @@ class OnlineBatchingExecutor:
                 # batch: log and keep optimizing
                 traceback.print_exc()
 
-        results, failures = await loop.run_in_executor(
-            None, partial(
-                runner, jobs, self.__config, params=self.params,
-                mesh=self.mesh, progress=progress_cb,
-                batch_policy=self.batch_policy, max_batch=self.max_batch,
-                pad_batches=self.pad_batches, retries=self.retries,
-                retry_delay_s=self.retry_delay_s,
-                stream_images=self.stream_images,
-                # shapes were canonicalized at add_task
-                canonicalize_styles=False, canonicalize_contents=False,
-                device=self.device))
+        call = partial(
+            runner, jobs, self.__config, params=self.params,
+            mesh=self.mesh, progress=progress_cb,
+            batch_policy=self.batch_policy, max_batch=self.max_batch,
+            pad_batches=self.pad_batches, retries=self.retries,
+            retry_delay_s=self.retry_delay_s,
+            stream_images=self.stream_images,
+            # shapes were canonicalized at add_task
+            canonicalize_styles=False, canonicalize_contents=False,
+            device=self.device)
+
+        def in_round():
+            with span("online.round", task=tids, jobs=len(jobs)):
+                return call()
+
+        results, failures = await loop.run_in_executor(None, in_round)
         for tid in results:
+            self._end_job(tid)
             if self.metrics is not None:
                 self.metrics.log("task_done", task=tid)
             if self.__verbose:
@@ -332,6 +360,7 @@ class OnlineBatchingExecutor:
                         device=self.device)
                 before = runner.lanes_reserved
                 runner.submit(tid, content, style)
+                self._admitted([tid])
                 used += runner.lanes_reserved - before
             return deferred
 
@@ -386,6 +415,7 @@ class OnlineBatchingExecutor:
                     await self._report(tid, pct, img, loss)
                 for tid in report.finished:
                     held.pop(tid, None)
+                    self._end_job(tid)
                     if self.metrics is not None:
                         self.metrics.log("task_done", task=tid)
                     if self.__verbose:
@@ -445,13 +475,33 @@ class OnlineBatchingExecutor:
         return waiters
 
     async def _report(self, tid, pct, img, loss):
-        await self.set_progress(tid, (pct, img))
-        if self.metrics is not None:
-            self.metrics.log("progress", task=tid, percent=pct, loss=loss)
-        if self.__report_progress is not None:
-            await self.__report_progress(tid, (pct, img))
+        with span("online.deliver", task=tid):
+            await self.set_progress(tid, (pct, img))
+            if self.metrics is not None:
+                self.metrics.log("progress", task=tid, percent=pct,
+                                 loss=loss)
+            if self.__report_progress is not None:
+                await self.__report_progress(tid, (pct, img))
+
+    def _admitted(self, tids):
+        """Tasks left the queue: their group of a round started (called
+        from the round's worker thread), or a live batch took them."""
+        for tid in tids:
+            queued = self._queued_spans.pop(tid, None)
+            if queued is not None:
+                queued.end()
+
+    def _end_job(self, tid):
+        """A task is done (its round or live batch handed back its final
+        image) or failed; its queue wait ends too if it never left the
+        queue."""
+        self._admitted([tid])
+        job = self._job_spans.pop(tid, None)
+        if job is not None:
+            job.end()
 
     async def _record_failure(self, tid, exc):
+        self._end_job(tid)
         record_failure(
             self.failures, tid, exc,
             (lambda event, task_id: self.metrics.log(event, task=task_id))
