@@ -607,7 +607,8 @@ def lane_lbfgs_step(loss_grad: LossGradFn, x: torch.Tensor,
         g0, f0 = state.g, state.f
         lr = np.asarray(lr, _f32)
 
-        with span("lbfgs.direction"):
+        with span("lbfgs.direction", lanes=nb, n=g0.shape[1],
+                  pairs=int(np.minimum(state.count, m).sum())):
             d = _lane_two_loop_direction(g0, state, impl=direction_impl)
         dphi0, g_l1 = _read(torch.stack([(g0 * d).sum(dim=1),
                                          g0.abs().sum(dim=1)]))

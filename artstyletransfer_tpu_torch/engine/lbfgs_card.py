@@ -22,6 +22,11 @@ launches, on one stream and with no read between them:
     loss into a slot the host names, and the round's scalars into a pinned
     host buffer; then an event.
 
+The launch of (a), the only graph that reads or writes history rows, is an
+``lbfgs.history`` span (lanes, n: the row length, and pairs: the pairs
+the lanes hold once (a) has stored, summed over the lanes, which the card
+writes into the round's scalars and the host sets at its next read).
+
 The host waits for the event, reads the pinned buffer and sends each
 searching lane's (f, slot, g·d) to its coroutine. A later round writes
 its trial step into a pinned buffer that its first graph (``trial``:
@@ -75,8 +80,8 @@ SLOTS = 5
 # first-step flag (torch scales a job's first step by 1 / |g|₁)
 _T, _W, _T_ACC, _ACC, _LR, _FIRST = range(6)
 # rows of the pinned output: the trial's f and g·d; the step's g·d at x,
-# max |d| and t0
-_F, _GTD, _GTD0, _DMAX, _T0 = range(5)
+# max |d| and t0; the pairs each lane holds after the last accept
+_F, _GTD, _GTD0, _DMAX, _T0, _PAIRS = range(6)
 
 
 class _Slot:
@@ -133,16 +138,17 @@ class CardSteps:
         self.count = torch.from_numpy(state.count.copy()).to(dev)
         self._lanes = torch.arange(nb, device=dev)
         self._par = torch.zeros((6, nb), dtype=torch.float32, device=dev)
-        self._out = torch.zeros((5, nb), dtype=torch.float32, device=dev)
+        self._out = torch.zeros((6, nb), dtype=torch.float32, device=dev)
         self._host_in = torch.zeros((6, nb), dtype=torch.float32,
                                     pin_memory=cuda)
-        self._host_out = torch.zeros((5, nb), dtype=torch.float32,
+        self._host_out = torch.zeros((6, nb), dtype=torch.float32,
                                      pin_memory=cuda)
         self._in, self._out_np = self._host_in.numpy(), self._host_out.numpy()
         self._event = torch.cuda.Event() if cuda else None
         self._index = dev.index
         self._held = []
         self._pending = None  # (lr, first) of the step (a) opened last
+        self._history = None  # the lbfgs.history span awaiting its pairs
         capture = graphs_mod.cuda_capture if cuda else graphs_mod.eager_capture
         # the captures' eager passes accept nothing: t = 0 from slot 0
         self._in[:] = 0.0
@@ -169,6 +175,7 @@ class CardSteps:
         y = g_new - g0
         ys = (y * s).sum(dim=1)
         self._store(st, s, y, ys)
+        self._out[_PAIRS].copy_(torch.clamp(self.count, max=st.rho.shape[1]))
         g0.copy_(g_new)
         self.fslots[0].copy_(self.fslots.view(-1).index_select(0, rows))
         self._direction(st, par[_LR], par[_FIRST] > 0)
@@ -270,7 +277,13 @@ class CardSteps:
                     self.loss_grad.replay()
                     continue
                 replay, launches = self._graphs[name]
-                replay()
+                if name == "accept":
+                    nb, n = self.x.shape
+                    with span("lbfgs.history", lanes=nb, n=n) as history:
+                        replay()
+                    self._history = history
+                else:
+                    replay()
                 kernels.add_launches(launches, self._index)
             if self._event is not None:
                 self._event.record(torch.cuda.current_stream(self.x.device))
@@ -282,6 +295,9 @@ class CardSteps:
         self._sync()
         out = self._out_np.copy()
         read.end()
+        if self._history is not None:
+            self._history.set(pairs=int(out[_PAIRS].sum()))
+            self._history = None
         return out
 
     def _open(self, t_acc, acc, lr, first) -> None:

@@ -104,10 +104,20 @@ def _raise_nonfinite_batch(bad, done, real_batch, cfg: Config) -> None:
         f"lr_start={cfg.lr_start})")
 
 
-# The JAX package's budget for the L-BFGS s/y history of a job or a batch
-# (half a 16 GB TPU chip), not yet measured on the card: above it a job
-# warns and a queue splits its groups (parallel/batch.py).
-LBFGS_HISTORY_BUDGET_GB = 8.0
+# Device memory one lane's evaluation needs beside its L-BFGS history, per
+# value of its top pyramid level (h * w * 3): the captured evaluation's
+# graph pool, the card step's gradient slots, x, d, the targets and the
+# allocator's cache. Read on an NVIDIA H100 80GB HBM3 (700 W), reserved
+# peak less the history over the lanes' top-level values (PERF.md): the
+# served 4-level 2048 px L-BFGS job, 1,258.7 bytes (25.90 GB reserved);
+# unit-opening queue groups at the caps this gives, 1,250.3 (3 lanes at
+# 2048 px, 77.40 GB), 1,254.1 (2 lanes), 1,245.2 (12 lanes at 1024 px)
+# and 1,128.9 (32 lanes at 512 px). The largest, rounded up.
+EVAL_BYTES_PER_TOP_VALUE = 1300
+# Where no card's memory bounds the history (the CPU): the JAX package's
+# budget (half a 16 GB TPU chip), so that a CPU queue groups its jobs as
+# the JAX package's does.
+HOST_HISTORY_BUDGET_GB = 8.0
 
 
 def lbfgs_history_gb(cfg: Config, level_shapes, batch: int = 1,
@@ -122,21 +132,47 @@ def lbfgs_history_gb(cfg: Config, level_shapes, batch: int = 1,
             / space / 1e9)
 
 
+def lbfgs_history_budget_gb(level_shapes, batch: int = 1, space: int = 1,
+                            device=None) -> float:
+    """What the L-BFGS history of `batch` jobs may take on each card, in
+    GB: the card's total memory less what the batch's evaluation needs
+    beside it (EVAL_BYTES_PER_TOP_VALUE a lane, its share over a space row
+    of `space` cards); HOST_HISTORY_BUDGET_GB on the CPU. device None: a
+    card where one is visible."""
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    if dev.type != "cuda":
+        return HOST_HISTORY_BUDGET_GB
+    total = torch.cuda.get_device_properties(dev).total_memory
+    evaluation = (EVAL_BYTES_PER_TOP_VALUE * int(np.prod(level_shapes[0]))
+                  * batch / space)
+    return (total - evaluation) / 1e9
+
+
+def lbfgs_history_fits(cfg: Config, level_shapes, batch: int = 1,
+                       space: int = 1, device=None) -> bool:
+    """Whether the L-BFGS history of `batch` jobs fits its budget on each
+    card: the one test of the single-job warning and the queue's cap."""
+    return (lbfgs_history_gb(cfg, level_shapes, batch, space)
+            <= lbfgs_history_budget_gb(level_shapes, batch, space, device))
+
+
 def warn_lbfgs_hbm(cfg: Config, level_shapes, batch: int = 1,
-                   space: int = 1) -> bool:
+                   space: int = 1, device=None) -> bool:
     """Print a stderr warning when the (batched, space-sharded) L-BFGS
-    history of a card exceeds LBFGS_HISTORY_BUDGET_GB; returns whether it
-    fired. One formula and threshold for the single-job and batched
-    sites."""
-    hist_gb = lbfgs_history_gb(cfg, level_shapes, batch, space)
-    if hist_gb <= LBFGS_HISTORY_BUDGET_GB:
+    history of a card does not fit its budget (lbfgs_history_fits);
+    returns whether it fired."""
+    if lbfgs_history_fits(cfg, level_shapes, batch, space, device):
         return False
+    hist_gb = lbfgs_history_gb(cfg, level_shapes, batch, space)
+    budget = lbfgs_history_budget_gb(level_shapes, batch, space, device)
     jobs = f"{batch} jobs x " if batch > 1 else ""
     shard = f" a card over {space} cards" if space > 1 else ""
     dt_hint = ("" if cfg.lbfgs_state_dtype == "bfloat16"
                else "--lbfgs-state-dtype bfloat16 (halves it), ")
     print(f"warning: L-BFGS history buffers need ~{hist_gb:.1f} GB of device "
-          f"memory{shard} ({jobs}history={cfg.lbfgs_history}); consider "
+          f"memory{shard} ({jobs}history={cfg.lbfgs_history}), over the "
+          f"{budget:.1f} GB left beside the evaluation; consider "
           f"{dt_hint}--lbfgs-history 10, sharding the pixels over more "
           f"cards (queue_cli --space N), or a smaller batch/resolution",
           file=sys.stderr)
@@ -761,7 +797,7 @@ class TransferJob:
         self.level_shapes = [tuple(prepare_img(c).shape)
                              for c in content_levels]
         if cfg.optimizer == "lbfgs":
-            warn_lbfgs_hbm(cfg, self.level_shapes)
+            warn_lbfgs_hbm(cfg, self.level_shapes, device=self.device)
 
         def on_device(img):
             return torch.from_numpy(prepare_img(img)).to(self.device)

@@ -42,8 +42,8 @@ import os
 import re
 import uuid
 
-from ..config import (PRESETS, STANDARD_GAUSS_NOISE_CONFIG, production_config,
-                      resolve_device)
+from ..config import (PRESETS, STANDARD_GAUSS_NOISE_CONFIG, Config,
+                      production_config, resolve_device)
 from ..engine.transfer import ContentStylePair
 from ..parallel.mesh import serving_mesh
 from ..runtime.executor import Executor, call_in_loop, record_failure
@@ -431,6 +431,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "in rounds through run_job_queue. Default on; "
                              "--no-online restores the reference-style "
                              "2-at-a-time executor")
+    parser.add_argument("--levels", type=int, default=None,
+                        help="pyramid levels (default: the preset's); 4 is "
+                             "the reference's max resolution, a 2048 px top "
+                             "level, whose jobs are served one at a time")
     parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                         default=None,
                         help="conv compute dtype; default: the preset's "
@@ -467,20 +471,26 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The served config: production_config of the preset, with each field
+    an explicit flag names replaced (the other production settings
+    stand)."""
+    cfg = production_config(PRESETS[args.preset], device=args.device)
+    for flag, field in (("levels", "levels_num"),
+                        ("compute_dtype", "compute_dtype"),
+                        ("stop_tol", "stop_tol"),
+                        ("stop_shrink", "stop_shrink")):
+        if getattr(args, flag) is not None:
+            cfg = dataclasses.replace(cfg, **{field: getattr(args, flag)})
+    return cfg
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # no card and no --device cpu: fail first
     from aiohttp import web
 
-    cfg = production_config(PRESETS[args.preset], device=args.device)
-    if args.compute_dtype is not None:
-        # an explicit dtype changes that field only; the other production
-        # settings stand
-        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
-    if args.stop_tol is not None:
-        cfg = dataclasses.replace(cfg, stop_tol=args.stop_tol)
-    if args.stop_shrink is not None:
-        cfg = dataclasses.replace(cfg, stop_shrink=args.stop_shrink)
+    cfg = config_from_args(args)
     pairs = (CONTENT_STYLE_FILENAME_PAIRS[:args.max_pairs]
              if args.max_pairs else None)
     if args.batched:

@@ -367,6 +367,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "the next chunk boundary. Default on; "
                              "--no-online-batching restores the "
                              "reference-style 2-at-a-time executor")
+    parser.add_argument("--levels", type=int, default=None,
+                        help="pyramid levels (default: 2); 4 is the "
+                             "reference's max resolution, a 2048 px top "
+                             "level, whose jobs are served one at a time")
     parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                         default=None,
                         help="conv compute dtype; default: float32, which "
@@ -396,6 +400,20 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The served config: production_config of the default Config, with
+    each field an explicit flag names replaced (the other production
+    settings stand)."""
+    cfg = production_config(Config(), device=args.device)
+    for flag, field in (("levels", "levels_num"),
+                        ("compute_dtype", "compute_dtype"),
+                        ("stop_tol", "stop_tol"),
+                        ("stop_shrink", "stop_shrink")):
+        if getattr(args, flag) is not None:
+            cfg = dataclasses.replace(cfg, **{field: getattr(args, flag)})
+    return cfg
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     resolve_device(args.device)  # no card and no --device cpu: fail first
@@ -404,15 +422,7 @@ def main(argv=None) -> int:
               "(get one via https://t.me/BotFather)", file=sys.stderr)
         return 1
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
-    cfg = production_config(Config(), device=args.device)
-    if args.compute_dtype is not None:
-        # an explicit dtype changes that field only; the other production
-        # settings stand
-        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
-    if args.stop_tol is not None:
-        cfg = dataclasses.replace(cfg, stop_tol=args.stop_tol)
-    if args.stop_shrink is not None:
-        cfg = dataclasses.replace(cfg, stop_shrink=args.stop_shrink)
+    cfg = config_from_args(args)
     if args.warmup:
         from ..engine.warmup import warmup_serving
 

@@ -70,13 +70,13 @@ from ..engine.init_pipeline import build_init_image
 from ..engine.pyramid import build_input_pyramids, level_shape
 from ..engine import checkpoint as ckpt
 from ..engine import graphs as graphs_mod
-from ..engine.transfer import (LBFGS_HISTORY_BUDGET_GB, HostCopies,
-                               LossGrad, _Adam, _Lbfgs, _check_supported,
-                               _compute_targets, _config_key,
+from ..engine.transfer import (HostCopies, LossGrad, _Adam, _Lbfgs,
+                               _check_supported, _compute_targets,
+                               _config_key,
                                _make_pyramid_loss, _make_space_pyramid_loss,
                                _raise_nonfinite_batch, async_steps,
-                               eval_graph, lbfgs_history_gb, use_graphs,
-                               warn_lbfgs_hbm)
+                               eval_graph, lbfgs_history_fits,
+                               lbfgs_history_gb, use_graphs, warn_lbfgs_hbm)
 from ..models.weights import shared_params
 from ..ops.resize import bicubic_resize_np
 from ..utils.image import prepare_img, unprepare_img
@@ -265,7 +265,8 @@ class BatchedTransferJob:
         self.params = ([shared_params(params, cfg.seed, d)
                         for d in self.space] if self.space else params0)
         if cfg.optimizer == "lbfgs":
-            warn_lbfgs_hbm(cfg, self.level_shapes, self.batch, n_space)
+            warn_lbfgs_hbm(cfg, self.level_shapes, self.batch, n_space,
+                           self.device)
 
         def lanes_on_device(stack, lvl):
             return torch.from_numpy(np.concatenate(
@@ -825,23 +826,26 @@ def resolve_batch_policy(cfg: Config, batch_policy: str = "auto") -> str:
 
 # The JAX package's value, not yet measured on this card: the batch size
 # past which job-steps/s stopped improving on one TPU chip. The history
-# budget is engine/transfer.py's LBFGS_HISTORY_BUDGET_GB.
+# budget is engine/transfer.py's lbfgs_history_fits.
 _SATURATION_BATCH = 32
 
 
 def max_jobs_per_batch(cfg: Config, content_shape: tuple,
-                       space: int = 1) -> int:
-    """Memory-aware cap on jobs per batch for one bucket: the L-BFGS
-    history pairs (2 * history * n_pixels values per job, 4 or 2 bytes
-    each; a card's share over a space row of `space` cards) against the
-    history budget, and the saturation batch."""
-    cap = _SATURATION_BATCH
-    if cfg.optimizer == "lbfgs":
-        h, w = level_shape(content_shape[0], content_shape[1],
-                           cfg.levels_num - 1, cfg.base_diameter)
-        per_job_gb = lbfgs_history_gb(cfg, [(1, h, w, 3)], space=space)
-        if per_job_gb > 0:
-            cap = min(cap, max(1, int(LBFGS_HISTORY_BUDGET_GB / per_job_gb)))
+                       space: int = 1, device=None) -> int:
+    """Memory-aware cap on jobs per batch for one bucket: the most jobs
+    whose L-BFGS history pairs (2 * history * n_pixels values per job, 4
+    or 2 bytes each; a card's share over a space row of `space` cards)
+    fit the history budget of `device` beside their evaluation
+    (lbfgs_history_fits; at least one), and the saturation batch."""
+    if cfg.optimizer != "lbfgs":
+        return _SATURATION_BATCH
+    h, w = level_shape(content_shape[0], content_shape[1],
+                       cfg.levels_num - 1, cfg.base_diameter)
+    shapes = [(1, h, w, 3)]
+    cap = 1
+    while cap < _SATURATION_BATCH and lbfgs_history_fits(
+            cfg, shapes, cap + 1, space, device):
+        cap += 1
     return cap
 
 
@@ -858,11 +862,12 @@ def bucket_space(cfg: Config, content_shape: tuple, n_space: int) -> int:
 
 def resolve_group_cap(cfg: Config, content_shape: tuple, jobs_axis: int,
                       policy: str, max_batch: Optional[int],
-                      space: int = 1) -> int:
+                      space: int = 1, device=None) -> int:
     """Jobs per group for one bucket (see run_job_queue). An explicit
     max_batch is a literal total cap, rounded down to a multiple of the
     jobs axis (1 on one card). space: the space axis the bucket's rows
-    shard over (bucket_space), which divides each card's history."""
+    shard over (bucket_space), which divides each card's history; device:
+    the card whose memory bounds it (max_jobs_per_batch)."""
     if policy == "sequential":
         return 1
     if max_batch is not None:
@@ -870,7 +875,7 @@ def resolve_group_cap(cfg: Config, content_shape: tuple, jobs_axis: int,
         if jobs_axis > 1 and cap >= jobs_axis:
             cap -= cap % jobs_axis
         return max(1, cap)
-    return max_jobs_per_batch(cfg, content_shape, space) * jobs_axis
+    return max_jobs_per_batch(cfg, content_shape, space, device) * jobs_axis
 
 
 def planned_round_sizes(cfg: Config, content_shape: tuple, n_jobs: int,
@@ -989,7 +994,7 @@ def run_job_queue(jobs: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     for bucket in bucket_jobs(jobs).values():
         cap = resolve_group_cap(
             cfg, bucket[0][1].shape, axis, policy, max_batch,
-            bucket_space(cfg, bucket[0][1].shape, n_space))
+            bucket_space(cfg, bucket[0][1].shape, n_space), dev)
         groups = [bucket[i:i + cap] for i in range(0, len(bucket), cap)]
         for group in groups:
             ids = [j[0] for j in group]

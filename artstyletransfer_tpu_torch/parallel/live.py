@@ -167,7 +167,7 @@ class LiveBatchRunner:
     def _capacity(self, content_shape) -> int:
         return resolve_group_cap(self.cfg, content_shape,
                                  jobs_axis(self.mesh), "batched",
-                                 self.max_batch)
+                                 self.max_batch, device=self.device)
 
     def _live_lanes(self) -> List[int]:
         return [lane for lane, tid in enumerate(self._lane_tid)

@@ -3172,22 +3172,31 @@ def phase_large():
 
 
 def large_lbfgs(params):
-    """One unit L-BFGS lane at 2048 px with carried Grams
-    (production_config), 3 steps, remat on: its history GB beside the
-    run's peak; the counters zeroed just before and read just after."""
+    """The benchmark cell lbfgs2k-solo's form of one job, 3 steps:
+    production_config(Config(levels_num=4)) (strong-Wolfe L-BFGS opened at
+    lr, a 100-pair float32 history, carried Grams, no remat) at 2048 px,
+    which steps on the card; its history GB beside the card's budget for
+    it (no warning may fire) and the run's peaks, and the evaluation's
+    bytes a top-level value that the reserved peak holds beside the
+    history (what engine/transfer.py's EVAL_BYTES_PER_TOP_VALUE holds,
+    read from the served job); the counters zeroed just before and read
+    just after."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from artstyletransfer_tpu_torch.config import Config, production_config
     from artstyletransfer_tpu_torch.engine.transfer import (
-        LBFGS_HISTORY_BUDGET_GB, TransferJob, lbfgs_history_gb)
+        EVAL_BYTES_PER_TOP_VALUE, TransferJob, lbfgs_history_budget_gb,
+        lbfgs_history_gb)
     from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
 
     free_card()
     cfg = production_config(dataclasses.replace(
-        Config(**LARGE), optimizer="lbfgs", lbfgs_t_init="unit",
-        remat_levels=True, iters_num=3, stream_every=3), "cuda")
+        Config(levels_num=LARGE["levels_num"],
+               base_diameter=LARGE["base_diameter"]),
+        iters_num=3, stream_every=3), "cuda")
     contents, style, inits, _ = large_inputs(1, cfg)
     job = TransferJob(contents[0], style, cfg, params=params, device="cuda",
                       init_override=inits[0])
@@ -3200,16 +3209,23 @@ def large_lbfgs(params):
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)  # ---- and ends here ----
     hist = lbfgs_history_gb(cfg, job.level_shapes)
-    rec = dict(phase="large", run="1lane_lbfgs_unit_incremental_remat",
-               lbfgs_grams=cfg.lbfgs_grams, steps=done, wall_s=wall,
-               history_gb=hist,
-               history_budget_gb=LBFGS_HISTORY_BUDGET_GB,
-               history_warning=hist > LBFGS_HISTORY_BUDGET_GB,
-               run_peak_gb=gb(torch.cuda.max_memory_allocated()),
+    budget = lbfgs_history_budget_gb(job.level_shapes, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    values = int(np.prod(job.level_shapes[0]))
+    rec = dict(phase="large", run="1lane_lbfgs_lr_incremental_history100",
+               lbfgs_grams=cfg.lbfgs_grams, t_init=cfg.lbfgs_t_init,
+               history=cfg.lbfgs_history, remat=cfg.remat_levels, steps=done,
+               wall_s=wall, history_gb=hist, history_budget_gb=budget,
+               history_warning=hist > budget, run_peak_gb=gb(peak),
+               run_reserved_peak_gb=gb(reserved),
+               eval_bytes_per_top_value=(reserved - hist * 1e9) / values,
+               eval_bytes_per_top_value_assumed=EVAL_BYTES_PER_TOP_VALUE,
                first_loss=first, last_loss=loss, launches=launches)
     emit(rec)
     RECORD.setdefault("large", []).append(rec)
-    if img.shape != (LARGE_HW, LARGE_HW, 3) or not loss < first:
+    if (img.shape != (LARGE_HW, LARGE_HW, 3) or not loss < first
+            or hist > budget):
         raise AssertionError(f"large lbfgs: bad result {rec}")
     check_launches("large lbfgs", launches, card_step(cfg))
     return launches

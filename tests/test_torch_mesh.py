@@ -275,7 +275,7 @@ def test_job_queue_split_is_mesh_aware(vgg_params, rng, monkeypatch):
 
     monkeypatch.setattr(pbatch, "BatchedTransferJob", Recorder)
     monkeypatch.setattr(pbatch, "max_jobs_per_batch",
-                        lambda cfg, shape, space=1: 2)
+                        lambda cfg, shape, space=1, device=None: 2)
     content = rng.random((24, 24, 3)).astype(np.float32)
     style = rng.random((16, 16, 3)).astype(np.float32)
     jobs = [(f"t{i}", content.copy(), style.copy()) for i in range(5)]
