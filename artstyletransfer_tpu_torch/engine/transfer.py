@@ -109,10 +109,11 @@ def _raise_nonfinite_batch(bad, done, real_batch, cfg: Config) -> None:
 # graph pool, the card step's gradient slots, x, d, the targets and the
 # allocator's cache. Read on an NVIDIA H100 80GB HBM3 (700 W), reserved
 # peak less the history over the lanes' top-level values (PERF.md): the
-# served 4-level 2048 px L-BFGS job, 1,258.7 bytes (25.90 GB reserved);
-# unit-opening queue groups at the caps this gives, 1,250.3 (3 lanes at
-# 2048 px, 77.40 GB), 1,254.1 (2 lanes), 1,245.2 (12 lanes at 1024 px)
-# and 1,128.9 (32 lanes at 512 px). The largest, rounded up.
+# served 4-level 2048 px L-BFGS job, 1,072.2 bytes (23.56 GB reserved);
+# unit-opening queue groups at the caps this gives, 1,117.2 (3 lanes at
+# 2048 px, 72.37 GB), 1,122.8 (2 lanes), 1,215.4 (12 lanes at 1024 px)
+# and 1,188.9 (32 lanes at 512 px). The value is the largest reading
+# with VGG19's per-op glue (1,258.7, the job) rounded up: it covers these.
 EVAL_BYTES_PER_TOP_VALUE = 1300
 # Where no card's memory bounds the history (the CPU): the JAX package's
 # budget (half a 16 GB TPU chip), so that a CPU queue groups its jobs as

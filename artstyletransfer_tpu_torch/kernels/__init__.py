@@ -6,7 +6,10 @@ pallas_kernels.py``: ``gram`` (``_gram_kernel`` and ``_gram_bwd_kernel``),
 JAX package leaves to XLA) and ``conv_relu`` (``_conv_relu_kernel``); and
 ``lbfgs``, which replaces no TPU kernel: the L-BFGS direction's two-loop
 coefficients (``lbfgs_coef``), which let the step run as captured graphs
-on the card. Each
+on the card; and ``vgg_glue``, which replaces none either: VGG19's bias,
+ReLU and 2x2 pool between the cuDNN convolutions in one pass
+(``vgg_glue``), and their gradients with a tap's in one pass
+(``vgg_glue_bwd``), which the JAX package leaves to XLA. Each
 wrapper runs its kernel for a CUDA tensor, its plain version for a CPU
 tensor, and raises for anything else; nothing falls back from the kernel
 to the plain version. The Gram and TV kernels take a leading lane axis and
@@ -28,7 +31,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
-KERNELS = ("gram", "gram_bwd", "tv", "tv_bwd", "conv_relu", "lbfgs_coef")
+KERNELS = ("gram", "gram_bwd", "tv", "tv_bwd", "conv_relu", "lbfgs_coef",
+           "vgg_glue", "vgg_glue_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 DEVICE_LAUNCHES: Dict[int, Dict[str, int]] = {}
 

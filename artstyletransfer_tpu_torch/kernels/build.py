@@ -21,7 +21,7 @@ from typing import Dict, Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("gram", "gram_bwd", "tv", "conv_relu", "lbfgs")
+SOURCES = ("gram", "gram_bwd", "tv", "conv_relu", "lbfgs", "vgg_glue")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()

@@ -282,6 +282,14 @@ KERNELS = {
                                      "coefficients, the host's numpy "
                                      "recursion (engine/lbfgs.py "
                                      "_two_loop_coefficients) on the card"),
+    "vgg_glue": dict(source=SRC + "vgg_glue.cu", replaces=None,
+                     replaces_note="no TPU kernel: VGG19's bias, ReLU and "
+                                   "2x2 pool between the convs, which the "
+                                   "JAX package leaves to XLA"),
+    "vgg_glue_bwd": dict(source=SRC + "vgg_glue.cu", replaces=None,
+                         replaces_note="no TPU kernel: the ReLU mask, the "
+                                       "pool's routing and a tap's gradient "
+                                       "add, XLA's in the JAX package"),
 }
 # kernels that only the L-BFGS step on the card launches (engine/
 # lbfgs_card.py): a path runs them where its L-BFGS form engages
@@ -595,6 +603,7 @@ def phase_kernels():
     tv_autograd_rows(gen)
     conv_rows(gen, rows)
     conv_grad_check(gen)
+    glue_rows(gen, rows)
     RECORD["kernels"] = rows
     return rows
 
@@ -880,6 +889,312 @@ def conv_grad_check(gen):
                rel_err_x_w_b=errs, tol=TOL[("conv_relu_grad", "float32")])
     emit(rec)
     RECORD["conv_relu_grad"] = rec
+
+
+# the glue rows' level inputs (lanes, h, w, tags): the main job's two
+# levels, the 2048 px job's four, 8 lanes of the 512 px level and its
+# 256 px level, and the 384x512 aspect bucket's two levels (odd widths at
+# every pool)
+GLUE_LEVELS = ([(1, 512, 512, {}), (1, 256, 256, {})]
+               + [(1, LARGE_HW >> k, LARGE_HW >> k,
+                   {"lanes": 1, "size": LARGE_HW}) for k in range(4)]
+               + [(LANES, 512, 512, {"lanes": LANES}),
+                  (LANES, 256, 256, {"lanes": LANES})]
+               + [(2, 512, 682, {"lanes": 2, "aspect": "384x512"}),
+                  (2, 256, 341, {"lanes": 2, "aspect": "384x512"})])
+
+
+def _halves(gen, shape, dtype, relu=False):
+    """Channels_last values on a grid of halves in [-4, 4]: sums with a
+    bias of halves stay exact, and 2x2 windows tie and hold zeros often."""
+    import torch
+
+    t = torch.round(torch.randn(shape, generator=gen, device="cuda") * 2) / 2
+    t = t.clamp(-4, 4)
+    if relu:
+        t = torch.relu(t)
+    return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _glue_layers(lanes, h, w):
+    """(layer, (B, C, H, W) of its conv output) of the 13 convs, VGG19's
+    production taps (use_relu)."""
+    from artstyletransfer_tpu_torch.models.vgg19 import _plan
+
+    out = []
+    for layer, (_, _cin, cout) in zip(_plan(True), VGG_CONVS):
+        out.append((layer, (lanes, cout, h, w)))
+        if layer.pool:
+            h, w = h // 2, w // 2
+    return out
+
+
+def _per_op_glue(y, b, layer, last):
+    """The per-op path's forward glue (what the kernel replaced): the bias
+    added in place, ReLU, the pool with int64 indices."""
+    import torch
+    import torch.nn.functional as F
+
+    pre = y.add_(b.view(1, -1, 1, 1))
+    if last and layer.tap_pre:
+        return pre
+    post = torch.relu(pre)
+    return F.max_pool2d(post, 2, 2, return_indices=True) if layer.pool \
+        else post
+
+
+def _per_op_glue_bwd(g, post, idx, t, layer):
+    """The per-op path's backward glue: the pool's backward, autograd's add
+    of a tap's gradient, threshold_backward."""
+    import torch
+
+    aten = torch.ops.aten
+    if layer.pool:
+        g = aten.max_pool2d_with_indices_backward(
+            g, post, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+        return aten.threshold_backward(g, post, 0)
+    if t is not None and not layer.tap_pre:
+        g = t if g is None else g + t
+    g = aten.threshold_backward(g, post, 0)
+    return g + t if t is not None and layer.tap_pre else g
+
+
+def glue_rows(gen, rows):
+    """kernels/vgg_glue.py at every conv of GLUE_LEVELS' level inputs, in
+    float32 (and bfloat16 at the main job's levels), one row per level and
+    direction over its 13 convs: the kernels against their plain versions
+    bit for bit on values of halves (ties, zeros), one launch a conv, two
+    calls the same bits; device ms summed over the 13 (the kernel, the
+    plain version, and as `library_ms` the per-op glue they replaced),
+    against the bytes bound at 3.35 TB/s (each input read once, each
+    output written once)."""
+    import torch
+
+    from artstyletransfer_tpu_torch.kernels import vgg_glue as kg
+
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for lanes, h, w, tags in GLUE_LEVELS:
+            if dtype == "bfloat16" and tags:
+                continue
+            layers = _glue_layers(lanes, h, w)
+            e = torch.empty((), dtype=tdt).element_size()
+            # ---- forward: y, bias per conv ----
+            ys = [_halves(gen, shape, tdt) for _, shape in layers]
+            bs = [(torch.round(torch.randn(shape[1], generator=gen,
+                                           device="cuda") * 2) / 2).to(tdt)
+                  for _, shape in layers]
+            last = len(layers) - 1
+            kw = [dict(pool=l.pool, keep_pre=l.tap_pre,
+                       keep_post=not (k == last and l.tap_pre))
+                  for k, (l, _) in enumerate(layers)]
+            nbytes = 0
+            for k, (layer, (b, c, hh, ww)) in enumerate(layers):
+                out = one_launch("vgg_glue",
+                                 lambda: kg.glue_cuda(ys[k].clone(), bs[k],
+                                                      **kw[k]))
+                again = kg.glue_cuda(ys[k].clone(), bs[k], **kw[k])
+                ref = kg.glue_plain(ys[k].clone(), bs[k], **kw[k])
+                for got, twice, want in zip(out, again, ref):
+                    if want is None:
+                        continue
+                    same_bits("vgg_glue", got, twice)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"vgg_glue {dtype} {layer.name} "
+                            f"{(b, c, hh, ww)}: not the plain bits")
+                n = b * c * hh * ww
+                np_ = b * c * (hh // 2) * (ww // 2)
+                nbytes += c * e + (n * e + np_ * (e + 1) if layer.pool else
+                                   n * e * (1 + kw[k]["keep_pre"]
+                                            + kw[k]["keep_post"]))
+            torch.cuda.synchronize()
+            fwd = (lambda: [kg.glue_cuda(y, b_, **a)
+                            for y, b_, a in zip(ys, bs, kw)])
+            plain = (lambda: [kg.glue_plain(y, b_, **a)
+                              for y, b_, a in zip(ys, bs, kw)])
+            lib = (lambda: [_per_op_glue(y, b_, l, k == last)
+                            for k, (y, b_, (l, _)) in
+                            enumerate(zip(ys, bs, layers))])
+            base = dict(dtype=dtype, **tags, h=h, w=w, convs=len(layers),
+                        max_abs_err=0.0, bit_equal=True)
+            t_ms, by = bound(nbytes, 0, dtype)
+            rows.append(dict(kernel="vgg_glue", **base, bytes=nbytes,
+                             bound_ms=t_ms, bound_by=by,
+                             **timings(fwd, plain, lib)))
+            emit(dict(phase="kernels", **rows[-1]))
+            del ys, fwd, plain, lib
+            torch.cuda.empty_cache()
+            # ---- backward: g from above, post or code, a tap's gradient --
+            args, per_op, nbytes = [], [], 0
+            for k, (layer, (b, c, hh, ww)) in enumerate(layers):
+                post = _halves(gen, (b, c, hh, ww), tdt, relu=True)
+                full = (b, c, hh, ww)
+                if layer.pool:
+                    _, pooled, code = kg.glue_plain(post, None, pool=True)
+                    idx = torch.nn.functional.max_pool2d(
+                        post, 2, 2, return_indices=True)[1]
+                    g = _halves(gen, pooled.shape, tdt)
+                    args.append(dict(g=g, code=code, size=(hh, ww)))
+                    per_op.append((g, post, idx, None, layer))
+                    n_in = g.numel() * (e + 1)
+                else:
+                    g = None if k == last else _halves(gen, full, tdt)
+                    t = (_halves(gen, full, tdt) if layer.tap is not None
+                         else None)
+                    if g is None and layer.tap_pre:
+                        continue  # the tap's gradient is the conv's as it is
+                    args.append(dict(g=g, post=post, tap=t,
+                                     tap_after=layer.tap_pre))
+                    per_op.append((g, post, None, t, layer))
+                    n_in = sum(x.numel() for x in (g, post, t)
+                               if x is not None) * e
+                    del post
+                nbytes += n_in + b * c * hh * ww * e
+            for a in args:
+                got = one_launch("vgg_glue_bwd", lambda: kg.glue_bwd_cuda(**a))
+                same_bits("vgg_glue_bwd", got, kg.glue_bwd_cuda(**a))
+                if not torch.equal(got, kg.glue_bwd_plain(**a)):
+                    raise AssertionError(f"vgg_glue_bwd {dtype} "
+                                         f"{tuple(got.shape)}: not the "
+                                         "plain bits")
+            for a, po in zip(args, per_op):
+                if not torch.equal(kg.glue_bwd_plain(**a), _per_op_glue_bwd(*po)):
+                    raise AssertionError(f"vgg_glue_bwd {dtype}: the plain "
+                                         "version is not the per-op bits")
+            torch.cuda.synchronize()
+            t_ms, by = bound(nbytes, 0, dtype)
+            rows.append(dict(
+                kernel="vgg_glue_bwd", **base, bytes=nbytes, bound_ms=t_ms,
+                bound_by=by,
+                **timings(lambda: [kg.glue_bwd_cuda(**a) for a in args],
+                          lambda: [kg.glue_bwd_plain(**a) for a in args],
+                          lambda: [_per_op_glue_bwd(*po) for po in per_op])))
+            emit(dict(phase="kernels", **rows[-1]))
+            del args, per_op
+            torch.cuda.empty_cache()
+
+
+def per_op_features(params, x, compute_dtype="float32", use_relu=True):
+    """The truncated VGG19 as the port ran it before Vgg19Fn, op by op
+    under autograd: tests/vgg_per_op.py's stack, the CPU tests' oracle."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from vgg_per_op import per_op_features as stack
+
+    return stack(params, x, compute_dtype, use_relu)
+
+
+def kernels_by_op(fn, top=16):
+    """The CUDA kernels of one call of fn by the ATen operation that
+    launched each (torch.profiler, CPU and CUDA activity; an eager fn:
+    a graph's replay names no operation): the `top` (kernel, op) pairs by
+    device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for evt in prof.events():
+        for k in evt.kernels:
+            key = (k.name[:72], evt.name)
+            by[key] = by.get(key, 0.0) + k.duration / 1e3
+    return [dict(kernel=k, op=op, ms=ms) for (k, op), ms in
+            sorted(by.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def glue_eval_checks(params, shapes=((2, 512), (4, LARGE_HW)),
+                     device="cuda"):
+    """One graphed evaluation (loss and gradient) of the 512 px bot job
+    and of the 2048 px 4-level job (production_config), with Vgg19Fn,
+    against the same job built and evaluated eagerly on per_op_features:
+    the targets, the loss and the gradient bit for bit; the launches of
+    one replay (13 of each glue kernel a level); device ms of one
+    evaluation each way, and the kernels of an eager evaluation each way
+    by the ATen operation that launched them (kernels_by_op)."""
+    import dataclasses
+
+    import torch
+
+    from artstyletransfer_tpu_torch.config import (Config, precision_gate,
+                                                   production_config)
+    from artstyletransfer_tpu_torch.engine import transfer
+    from artstyletransfer_tpu_torch.engine.transfer import TransferJob
+    from artstyletransfer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = []
+    for levels, size in shapes:
+        free_card()
+        cfg = production_config(dataclasses.replace(
+            Config(levels_num=levels), iters_num=1, stream_every=1), device)
+        content, style = synthetic_pair(21, size)
+        fused = TransferJob(content, style, cfg, params=params,
+                            device=device)
+        eager = TransferJob(content, style, cfg, params=params,
+                            device=device, graphs=False)
+        fused_eval = transfer.extract_features
+        transfer.extract_features = per_op_features
+        try:
+            per_op = TransferJob(content, style, cfg, params=params,
+                                 device=device, graphs=False)
+        finally:
+            transfer.extract_features = fused_eval
+        x = fused._x0.clone()
+        rec = dict(phase="glue", run="eval", levels=levels, size=size)
+        with precision_gate(cfg.conv_precision):
+            fused._loss_grad(x)  # captures
+            torch.cuda.synchronize()
+            reset_launches()
+            f1, g1 = (t.clone() for t in fused._loss_grad(x))
+            torch.cuda.synchronize()
+            rec["launches_per_eval"] = {k: LAUNCHES[k] for k in
+                                        ("vgg_glue", "vgg_glue_bwd")}
+            transfer.extract_features = per_op_features
+            try:
+                f0, g0 = (t.clone() for t in per_op._loss_grad(x))
+                torch.cuda.synchronize()
+                rec["device_ms_per_op"] = device_ms(
+                    lambda: per_op._loss_grad(x), reps=5)
+                rec["per_op_kernels_by_op"] = kernels_by_op(
+                    lambda: per_op._loss_grad(x))
+            finally:
+                transfer.extract_features = fused_eval
+            rec["device_ms_fused_graphed"] = device_ms(
+                lambda: fused._loss_grad(x), reps=5)
+            rec["fused_kernels_by_op"] = kernels_by_op(
+                lambda: eager._loss_grad(x))
+        rec["targets_bit_equal"] = all(
+            torch.equal(a[0], b[0]) and all(torch.equal(u, v)
+                                            for u, v in zip(a[1], b[1]))
+            for a, b in zip(fused.targets, per_op.targets))
+        rec["loss_bit_equal"] = bool(torch.equal(f1, f0))
+        rec["grad_bit_equal"] = bool(torch.equal(g1, g0))
+        rec["loss_rel"] = float((f1.double() / f0.double() - 1).abs().max())
+        rec["grad_rel"] = _rel(g1, g0)
+        rec["grad_mismatches"] = int((g1 != g0).sum())
+        emit(rec)
+        out.append(rec)
+        want = {"vgg_glue": 13 * levels, "vgg_glue_bwd": 13 * levels}
+        if rec["launches_per_eval"] != want:
+            raise AssertionError(f"glue eval: launches {rec}")
+        if not (rec["targets_bit_equal"] and rec["loss_bit_equal"]
+                and rec["grad_bit_equal"]):
+            raise AssertionError(f"glue eval {size}: not the per-op bits "
+                                 f"{rec}")
+        del fused, eager, per_op
+    RECORD["glue"] = out
+    return out
+
+
+def phase_glue():
+    """The glue kernels on the evaluation: glue_eval_checks."""
+    from artstyletransfer_tpu_torch.models.weights import init_vgg19_params
+
+    return glue_eval_checks(init_vgg19_params(seed=0))
 
 
 def _sums(sel):
@@ -2957,12 +3272,13 @@ def phase_frontends():
 LARGE = dict(levels_num=4, base_diameter=256, optimizer="adam",
              iters_num=10, stream_every=5)
 LARGE_LIMIT = 70e9  # bytes: a batch runs when memory_stats predicts below
-# kernel launches of one evaluation without remat: 5 style layers and one
-# TV image per level, 4 levels; remat runs each forward kernel twice
+# kernel launches of one evaluation without remat: 5 style layers, one
+# TV image and 13 convs' glue each way per level, 4 levels; remat runs
+# each forward kernel twice
 LARGE_EVAL = {"gram": 20, "gram_bwd": 20, "tv": 4, "tv_bwd": 4,
-              "conv_relu": 0}
+              "conv_relu": 0, "vgg_glue": 52, "vgg_glue_bwd": 52}
 REMAT_EVAL = {"gram": 40, "gram_bwd": 20, "tv": 8, "tv_bwd": 4,
-              "conv_relu": 0}
+              "conv_relu": 0, "vgg_glue": 104, "vgg_glue_bwd": 52}
 _LARGE = {}  # the large phase's seeded images, made once
 
 
@@ -4396,6 +4712,7 @@ def main() -> int:
     smi = phase_build()
     rows = phase_kernels()
     phase_golden()
+    phase_glue()
     paths = {"main": phase_main()}
     paths.update(phase_queue())
     paths.update(phase_lbfgs_state())

@@ -131,7 +131,8 @@ def test_cpu_runs_are_not_counted_as_launches(rng):
                           torch.ones((1, m)), torch.ones((1, m)),
                           torch.ones((1, m)), torch.tensor([2]))
     assert LAUNCHES == {"gram": 0, "gram_bwd": 0, "tv": 0, "tv_bwd": 0,
-                        "conv_relu": 0, "lbfgs_coef": 0}
+                        "conv_relu": 0, "lbfgs_coef": 0, "vgg_glue": 0,
+                        "vgg_glue_bwd": 0}
 
 
 def test_wrappers_refuse_other_devices():

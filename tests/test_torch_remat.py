@@ -146,15 +146,18 @@ _CONVS = (2, 2, 4, 4, 1)
 def level_bytes(lanes: int, h: int, w: int, lower: bool) -> int:
     """The bytes autograd saves for one level pass of `lanes` h x w
     float32 images, the input image left out: each conv's ReLU output
-    (the next conv's or pool's input), each pool's int64 indices and
-    output, conv4_2's content difference, each style layer's Gram and the
-    TV means. A lower level's image is a strided downscale, of which the
-    TV keeps a contiguous copy."""
+    that the next conv reads (and conv5_1's, for its ReLU mask), each
+    pool's output and its byte per pooled value (models/vgg19.py Vgg19Fn:
+    the full-size map before a pool is not kept), conv4_2's content
+    difference, each style layer's Gram and the TV means. A lower level's
+    image is a strided downscale, of which the TV keeps a contiguous
+    copy."""
     total = 0
     for k, (c, convs) in enumerate(zip(_CHANNELS, _CONVS)):
-        total += convs * lanes * (h >> k) * (w >> k) * c * 4
+        full = convs if k == 4 else convs - 1
+        total += full * lanes * (h >> k) * (w >> k) * c * 4
         if k < 4:
-            total += lanes * (h >> (k + 1)) * (w >> (k + 1)) * c * (8 + 4)
+            total += lanes * (h >> (k + 1)) * (w >> (k + 1)) * c * (4 + 1)
         total += lanes * c * c * 4
     total += lanes * (h >> 3) * (w >> 3) * 512 * 4 + lanes * 2 * 4
     if lower:
